@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tokenize_audio_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-cu OLD.cu] [--candidate-cu OTHER.cu ...]
 
 Needs one CUDA device and ``nvcc`` (the kernels build from
 ``tokenize_audio_tpu_torch/csrc`` at first use). Phases, each of which fails
@@ -16,9 +16,23 @@ the run (non-zero exit, no final result line) if its check fails:
                 seed 0), 32 codebooks, packed transfer, fifo drain, on a
                 YODAS2-shaped sub-shard through encode_batch(defer=True) and
                 finish(); both kernels' launch counts must rise, and the codes
-                are held against the plain-PyTorch ("torch") backends;
-  5. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
+                are held against the plain-PyTorch ("torch") backends; every
+                (B, C, T) the main path launches the resblock kernel with is
+                recorded;
+  5. replay   — the resblock kernel at each recorded shape: agreement with
+                its plain version, CUDA-event times and the FP32 bound, summed
+                per C as count x ms (the ``main_path`` entry of its record);
+  6. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
+
+Options, for comparing kernels on one card in one run, each another
+version of csrc/seanet_resblock.cu with the same C entry
+``resblock_elu_launch``, built beside the kernel and timed beside it in the
+replay phase: ``--baseline-cu`` takes HF-layout weights (an older commit's
+file) and must agree with the plain version; ``--candidate-cu`` (repeatable,
+named by its file's stem) takes the packed weights of ``pack_weights``, and
+its error is reported, not checked, so an edited copy that drops part of
+the work on purpose can be timed.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -26,12 +40,16 @@ The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 
 from __future__ import annotations
 
+import argparse
+import collections
+import ctypes
 import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -42,6 +60,7 @@ RVQ_SHAPE = dict(n=4096, d=256, v=2048, k=32)
 RVQ_SMALL_N = 267  # mean rows per main-path batch
 RESBLOCK_BATCH, RESBLOCK_SECONDS = 16, 10.0
 AB_PAIRS = 6
+SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clocks: longer than any fn's host-side enqueue
 # published dense rates (NVIDIA data sheets): FP32 outside the tensor cores
 # and HBM bandwidth, by H100 variant
 PEAKS = {
@@ -77,7 +96,10 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float, peak_bw: float):
 
 
 def cuda_ms(torch, fn, warmup: int = 2, reps: int = 7) -> float:
-    """Median CUDA-event milliseconds of ``fn`` over ``reps`` runs."""
+    """Median CUDA-event milliseconds of ``fn`` over ``reps`` runs: device
+    time. Each run is enqueued behind a ~1 ms device-side sleep, so the
+    host's launch overhead (Python, ctypes) is hidden behind it and not
+    counted, as it would be for a small kernel on an idle card."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -85,6 +107,7 @@ def cuda_ms(torch, fn, warmup: int = 2, reps: int = 7) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -187,6 +210,7 @@ def phase_kernels(torch, peak_flops, peak_bw):
             res = block["res"][0]
             w = [torch.from_numpy(res[a][p]).to(dev) for a in ("c1", "c2") for p in ("w", "b")]
             w3, b3, w1, b1 = w
+            packed = seanet.pack_weights(w3, w1)
             xs = rng.standard_normal((RESBLOCK_BATCH, c, t)).astype(np.float32) * 0.5
             valid = rng.integers(t // 2, t + 1, RESBLOCK_BATCH).astype(np.int32)
             valid[0] = t
@@ -195,14 +219,14 @@ def phase_kernels(torch, peak_flops, peak_bw):
             xt = torch.from_numpy(xs).to(dev)
             vt = torch.from_numpy(valid).to(dev)
             del xs
-            got = seanet.resblock_elu(xt, vt, w3, b3, w1, b1)
+            got = seanet.resblock_elu(xt, vt, w3, b3, w1, b1, packed=packed)
             want = seanet.resblock_elu_reference(xt, vt, w3, b3, w1, b1)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
             check(err <= 1e-4 * scale, f"resblock C={c}: max err {err} > 1e-4 * {scale}")
             del got, want
-            ms = cuda_ms(torch, lambda: seanet.resblock_elu(xt, vt, w3, b3, w1, b1))
+            ms = cuda_ms(torch, lambda: seanet.resblock_elu(xt, vt, w3, b3, w1, b1, packed=packed))
             plain_ms = cuda_ms(
                 torch, lambda: seanet.resblock_elu_reference(xt, vt, w3, b3, w1, b1), reps=5
             )
@@ -259,6 +283,7 @@ def phase_main(torch):
 
     cfg = MimiConfig()
     params = params_to_torch(random_params(cfg, seed=SEED))  # on the card
+    shapes = collections.Counter()
     rng = np.random.default_rng(SEED + 1)
     audios = make_subshard(rng)
     audio_seconds = sum(len(a) for a in audios) / SR
@@ -272,12 +297,21 @@ def phase_main(torch):
         seen["cuda.matmul.allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
         return orig_tfm(*args, **kwargs)
 
+    # the resblock shapes of the main path; while the spy is installed the
+    # wrapper's count (kept on its module-global name) is the spy's
+    orig_rb = seanet.resblock_elu
+
+    def rb_spy(x, *args, **kwargs):
+        shapes[tuple(x.shape)] += 1
+        return orig_rb(x, *args, **kwargs)
+
     model.transformer_apply = spy
     try:
         engine = MimiEncoderEngine(params, cfg, num_codebooks=32)
         engine.encode_batch(audios[:4], sr=SR)  # first-use set-up, not counted
         torch.cuda.synchronize()
         engine.stats = EngineStats()
+        seanet.resblock_elu = rb_spy
         rvq.rvq_quantize.launches = 0
         seanet.resblock_elu.launches = 0
         t0 = time.perf_counter()
@@ -291,8 +325,11 @@ def phase_main(torch):
         }
     finally:
         model.transformer_apply = orig_tfm
+        seanet.resblock_elu = orig_rb
     check(seen and not any(seen.values()), f"TF32 flags inside encode: {seen}")
     check(all(n > 0 for n in launches.values()), f"kernel launches on the main path: {launches}")
+    check(sum(shapes.values()) == launches["resblock_elu"],
+          f"resblock shapes {sum(shapes.values())} vs launches {launches['resblock_elu']}")
     check(len(codes) == len(audios), "one code array per utterance")
     for a, c in zip(audios, codes):
         check(c.shape == (32, -(-len(a) // SPF)), f"codes shape {c.shape} for {len(a)} samples")
@@ -338,7 +375,7 @@ def phase_main(torch):
     emit({"phase": "main_ab", **ab})
     emit({"phase": "main_profile", "backend": "kernel", **profile})
     emit({"phase": "main_profile", "backend": "torch", **plain_profile})
-    return launches
+    return launches, shapes
 
 
 def interleaved_rtf(torch, engines, audios, audio_seconds, pairs: int = AB_PAIRS):
@@ -396,6 +433,113 @@ def device_breakdown(torch, run, top: int = 12):
     }
 
 
+def start_extra_build(name: str, src: str):
+    """Start ``nvcc`` on another version of csrc/seanet_resblock.cu into
+    ``lib<name>.so``; returns a function that waits for it and returns its
+    ``resblock_elu_launch`` and ptxas report."""
+    from tokenize_audio_tpu_torch.ops.cuda import _build, seanet
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / f"lib{name}.so"
+    proc = subprocess.Popen(_build.nvcc_command(Path(src).resolve(), out),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"{name} build of {src} failed:\n{log}")
+        fn = ctypes.CDLL(str(out)).resblock_elu_launch
+        fn.argtypes = seanet._ARGTYPES
+        fn.restype = ctypes.c_int
+        return fn, [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+
+    return finish
+
+
+def phase_replay(torch, shapes, peak_flops, peak_bw, extras):
+    """The resblock kernel at every (B, C, T) the main path launched it
+    with: agreement with the plain version (1e-4 x max|plain|), CUDA-event
+    times of the kernel and the plain version, and the FP32 bound; and the
+    time and error of each of ``extras`` (name -> the C entry of another
+    build: ``baseline`` takes HF-layout weights and must agree, the others
+    take packed weights and their error is only reported). Returns the sums
+    per C, each shape weighted by its launch count."""
+    from tokenize_audio_tpu_torch.config import ieee_fp32
+    from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
+    from tokenize_audio_tpu_torch.ops.cuda import seanet
+
+    dev = torch.device("cuda")
+    cfg = MimiConfig()
+    params = random_params(cfg, seed=SEED)
+    weights, c = {}, cfg.num_filters
+    for block in params["blocks"]:
+        res = block["res"][0]
+        w = [torch.from_numpy(res[a][p]).to(dev) for a in ("c1", "c2") for p in ("w", "b")]
+        weights[c] = (*w, seanet.pack_weights(w[0], w[2]))
+        c *= 2
+    rng = np.random.default_rng(SEED + 3)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    with ieee_fp32():
+        for (b, c, t), count in sorted(shapes.items(), key=lambda kv: (kv[0][1], kv[0][0] * kv[0][2])):
+            w3, b3, w1, b1, packed = weights[c]
+            c2 = c // 2
+            xs = (rng.standard_normal((b, c, t)) * 0.5).astype(np.float32)
+            valid = rng.integers(t // 2, t + 1, b).astype(np.int32)
+            valid[0] = t
+            for i, vl in enumerate(valid):
+                xs[i, :, vl:] = 0.0
+            xt, vt = torch.from_numpy(xs).to(dev), torch.from_numpy(valid).to(dev)
+            del xs
+            args = (xt, vt, w3, b3, w1, b1)
+            got = seanet.resblock_elu(*args, packed=packed)
+            want = seanet.resblock_elu_reference(*args)
+            torch.cuda.synchronize()
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            check(err <= 1e-4 * scale, f"resblock {(b, c, t)}: max err {err} > 1e-4 * {scale}")
+            flops = 2.0 * (3 * c * c2 + c * c2) * b * t
+            nbytes = 4.0 * (2 * b * c * t + 4 * c * c2 + c2 + c + b)
+            b_ms, b_by = bound_ms(flops, nbytes, peak_flops, peak_bw)
+            row = {"B": b, "C": c, "T": t, "count": count, "max_abs_err": err,
+                   "ms": cuda_ms(torch, lambda: seanet.resblock_elu(*args, packed=packed)),
+                   "plain_ms": cuda_ms(torch, lambda: seanet.resblock_elu_reference(*args), reps=5),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            out = torch.empty_like(xt)
+            for name, fn in extras.items():
+                ws = (w3, w1) if name == "baseline" else packed
+                ptrs = [a.data_ptr() for a in (xt, vt, ws[0], b3, ws[1], b1, out)]
+
+                def run_extra(fn=fn, ptrs=ptrs, name=name):
+                    check(fn(*ptrs, b, c, c2, t, stream) == 0, f"{name} launch failed")
+
+                run_extra()
+                torch.cuda.synchronize()
+                row[f"{name}_err"] = float((out - want).abs().max())
+                if name == "baseline":
+                    check(row[f"{name}_err"] <= 1e-4 * scale,
+                          f"baseline {(b, c, t)}: max err {row[f'{name}_err']}")
+                row[f"{name}_ms"] = cuda_ms(torch, run_extra)
+            rows.append(row)
+            del got, want, out, xt, args
+            torch.cuda.empty_cache()
+    per_c = {}
+    for c in sorted({r["C"] for r in rows}):
+        rs = [r for r in rows if r["C"] == c]
+        tot = {"launches": sum(r["count"] for r in rs), "shapes": len(rs),
+               "columns": sum(r["count"] * r["B"] * r["T"] for r in rs)}
+        for key in rs[0]:
+            if key.endswith("ms"):
+                tot[key] = sum(r["count"] * r[key] for r in rs)
+            elif key.endswith("_err"):
+                tot[key] = max(r[key] for r in rs)
+        per_c[c] = tot
+    total = {k: sum(p[k] for p in per_c.values())
+             for k in per_c[min(per_c)] if k == "launches" or k.endswith("ms")}
+    summary = {"per_C": per_c, "total": total, "max_abs_err": max(r["max_abs_err"] for r in rows),
+               "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed"}
+    emit({"phase": "replay", **summary})
+    return summary
+
+
 def phase_tie(torch):
     from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
     from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
@@ -416,7 +560,13 @@ def phase_tie(torch):
     check(frame_match >= 0.999, f"card vs CPU frame match {frame_match} < 0.999")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline-cu",
+                    help="an older seanet_resblock.cu (HF-layout weights) to time beside the kernel")
+    ap.add_argument("--candidate-cu", action="append", default=[],
+                    help="another seanet_resblock.cu (packed weights) to time beside the kernel")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -432,18 +582,28 @@ def main() -> int:
           "peaks": {"variant": variant, "fp32_flops": peak_flops, "hbm_bytes_per_s": peak_bw}})
     try:
         t0 = time.perf_counter()
+        pending = {}
+        if args.baseline_cu:
+            pending["baseline"] = start_extra_build("baseline", args.baseline_cu)
+        for src in args.candidate_cu:
+            pending[Path(src).stem] = start_extra_build(Path(src).stem, src)
         seconds = _build.build()
         ptxas = {
             k: [ln.strip() for ln in _build.build_log(k).splitlines()
                 if "registers" in ln or "spill" in ln]
             for k in _build.KERNELS
         }
+        extras = {}
+        for extra, done in pending.items():
+            extras[extra], ptxas[extra] = done()
         emit({"phase": "build", "seconds": seconds, "wall_seconds": time.perf_counter() - t0,
               "ptxas": ptxas})
         records = phase_kernels(torch, peak_flops, peak_bw)
-        launches = phase_main(torch)
+        launches, shapes = phase_main(torch)
         for r in records:
             r["launches"] = launches[r["name"]]
+        main_path = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
+        next(r for r in records if r["name"] == "resblock_elu")["main_path"] = main_path
         phase_tie(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -61,13 +61,34 @@ def test_rvq_kernel_first_index_ties(cuda):
     assert 3 in got and 7 not in got and 12 not in got
 
 
-@pytest.mark.parametrize("c,t", [(8, 9000), (16, 5000), (64, 2500), (96, 777), (512, 301)])
-def test_resblock_kernel_close_to_plain(cuda, c, t):
-    rng = np.random.default_rng(c)
+# (B, C, T): the first five are small and odd shapes; then B = 1 and 2 at
+# the main path's widths, with T ragged against each width's time tile
+# (256 columns at C = 64, 128 at C = 128, 128 or 64 at C = 256, 64 or 32 at
+# C = 512, by the launch's column count): T = 1, T < tile, tile * k +- 1, a
+# multiple of 4 (16-byte path) and not; the last cases at each width span
+# many tiles (and clusters at C >= 256), past the column count where the
+# kernel changes its tile.
+RESBLOCK_CASES = [
+    (3, 8, 9000), (3, 16, 5000), (3, 64, 2500), (3, 96, 777), (3, 512, 301),
+    (1, 64, 1), (2, 64, 255), (1, 64, 257), (2, 64, 511), (2, 64, 4096),
+    (1, 128, 1), (2, 128, 127), (1, 128, 129), (2, 128, 383), (2, 128, 3840),
+    (1, 256, 3), (2, 256, 63), (1, 256, 129), (2, 256, 1023), (2, 256, 2049),
+    (2, 256, 2784),
+    (1, 512, 1), (2, 512, 31), (1, 512, 33), (2, 512, 63), (1, 512, 65),
+    (2, 512, 191), (2, 512, 1537), (1, 512, 2001), (2, 512, 4000),
+]
+
+
+@pytest.mark.parametrize("b,c,t", RESBLOCK_CASES)
+def test_resblock_kernel_close_to_plain(cuda, b, c, t):
+    rng = np.random.default_rng(c * 7919 + t)
     c2 = c // 2
+    # row 1 of a two-row batch has valid = 0; every row is checked for zeros
+    # past its valid length
+    valid = {1: [t // 2 + 1], 2: [t, 0], 3: [t, t // 2 + 5, 1]}[b]
     arrs = [
-        (rng.standard_normal((3, c, t)) * 0.5).astype(np.float32),
-        np.array([t, t // 2 + 5, 1], dtype=np.int32),
+        (rng.standard_normal((b, c, t)) * 0.5).astype(np.float32),
+        np.array(valid, dtype=np.int32),
         (rng.standard_normal((c2, c, 3)) * 0.2).astype(np.float32),
         (rng.standard_normal(c2) * 0.1).astype(np.float32),
         (rng.standard_normal((c, c2, 1)) * 0.2).astype(np.float32),
@@ -82,7 +103,25 @@ def test_resblock_kernel_close_to_plain(cuda, c, t):
     want = seanet.resblock_elu_reference(*args)
     tol = 1e-5 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
-    assert bool((got[1, :, int(arrs[1][1]):] == 0).all())
+    for i, vl in enumerate(valid):
+        assert bool((got[i, :, vl:] == 0).all())
+
+
+def test_resblock_kernel_takes_packed_weights(cuda):
+    """Weights packed once by the caller give the result of packing at the
+    launch; a packed pair of the wrong layout is refused."""
+    rng = np.random.default_rng(11)
+    c, c2, t = 64, 32, 300
+    x = torch.from_numpy((rng.standard_normal((1, c, t)) * 0.5).astype(np.float32)).to(cuda)
+    v = torch.tensor([t], dtype=torch.int32, device=cuda)
+    w = [torch.from_numpy((rng.standard_normal(s) * 0.2).astype(np.float32)).to(cuda)
+         for s in ((c2, c, 3), (c2,), (c, c2, 1), (c,))]
+    before = seanet.resblock_elu.launches
+    got = seanet.resblock_elu(x, v, *w, packed=seanet.pack_weights(w[0], w[2]))
+    assert seanet.resblock_elu.launches == before + 1
+    assert torch.equal(got, seanet.resblock_elu(x, v, *w))
+    with pytest.raises(ValueError, match="packed"):
+        seanet.resblock_elu(x, v, *w, packed=(w[0], w[2]))
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -136,3 +175,21 @@ def test_engine_on_card_equals_cpu(cuda):
     same = np.concatenate([(g == w).reshape(-1) for g, w in zip(got, want)])
     assert [g.shape for g in got] == [w.shape for w in want]
     assert same.mean() >= 0.99, same.mean()
+
+
+def test_engine_under_inference_mode_on_card(cuda):
+    """An engine built and run under torch.inference_mode() (its weights,
+    packed ones included, are inference tensors) gives the codes of one
+    built outside it."""
+    params = random_params(TINY, seed=2)
+    ecfg = EngineConfig(batch_size=4, min_bucket_seconds=0.5, max_chunk_seconds=2.0)
+    rng = np.random.default_rng(6)
+    audios = [(rng.standard_normal(n) * 0.3).astype(np.float32) for n in (3000, 19_200, 7777)]
+    want = MimiEncoderEngine(params, TINY, ecfg).encode_batch(audios)
+    with torch.inference_mode():
+        engine = MimiEncoderEngine(params, TINY, ecfg)
+        s0 = seanet.resblock_elu.launches
+        got = engine.encode_batch(audios)
+    assert seanet.resblock_elu.launches > s0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -50,15 +50,23 @@ def test_rvq_first_index_ties():
     assert 3 in got and 7 not in got and 12 not in got
 
 
-@pytest.mark.parametrize("c,t", [(8, 9000), (16, 5000), (64, 2500)])
+# small widths with many Pallas tiles, then the main path's own widths at a
+# ragged T: the plain version is the kernel's oracle on the card, so it is
+# held to the Pallas kernel at every stage width
+@pytest.mark.parametrize(
+    "c,t", [(8, 9000), (16, 5000), (64, 2500), (128, 301), (256, 301), (512, 301)]
+)
 def test_resblock_close_to_pallas(c, t):
     """Within 1e-5: the summation-order class ops/pallas/seanet.py:27-29
     documents (the Pallas kernel's shifted dots vs a conv)."""
     rng = np.random.default_rng(c)
     c2 = c // 2
-    w3 = (rng.standard_normal((c2, c, 3)) * 0.2).astype(np.float32)
+    # weights shrink with fan-in past C = 64, as a trained model's do, so the
+    # activations stay O(1) at every width
+    ws = 0.2 * min(1.0, (64 / c) ** 0.5)
+    w3 = (rng.standard_normal((c2, c, 3)) * ws).astype(np.float32)
     b3 = (rng.standard_normal(c2) * 0.1).astype(np.float32)
-    w1 = (rng.standard_normal((c, c2, 1)) * 0.2).astype(np.float32)
+    w1 = (rng.standard_normal((c, c2, 1)) * ws).astype(np.float32)
     b1 = (rng.standard_normal(c) * 0.1).astype(np.float32)
     x = (rng.standard_normal((3, c, t)) * 0.5).astype(np.float32)
     valid = np.array([t, t // 2 + 5, 1], dtype=np.int32)
@@ -71,6 +79,97 @@ def test_resblock_close_to_pallas(c, t):
     assert got.shape == x.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
     assert (got.numpy()[1, :, valid[1]:] == 0).all()
+
+
+def _resblock_from_packed(x, valid, w3p, b3, w1p, b1):
+    """The kernel's arithmetic in plain torch, reading the conv weights only
+    through their packed layout (w3p[c, k, m], w1p[j, m], zero-padded)."""
+    c, c2, t = x.shape[1], b3.shape[0], x.shape[-1]
+    elu = torch.nn.functional.elu
+    xe = torch.nn.functional.pad(elu(x), (2, 0))  # causal halo, zero before t = 0
+    h = sum(torch.einsum("cm,bct->bmt", w3p[:, k], xe[:, :, k:k + t]) for k in range(3))
+    h = elu(h[:, :c2] + b3[:, None])
+    y = x + torch.einsum("jm,bjt->bmt", w1p, h)[:, :c] + b1[:, None]
+    y = torch.where(torch.arange(t)[None, None, :] < valid[:, None, None], y, 0.0)
+    return elu(y)
+
+
+@pytest.mark.parametrize("c", [6, 12, 64, 512])
+def test_packed_weights_unpack_to_hf_layout(c):
+    """The packed layout unpacks to HF's (C/2, C, 3) and (C, C/2, 1); its
+    rows are zero-padded to multiples of 4 floats."""
+    rng = np.random.default_rng(c)
+    c2 = c // 2
+    w3 = torch.from_numpy(rng.standard_normal((c2, c, 3)).astype(np.float32))
+    w1 = torch.from_numpy(rng.standard_normal((c, c2, 1)).astype(np.float32))
+    w3p, w1p = seanet.pack_weights(w3, w1)
+    ld3, ld1 = -(-c2 // 4) * 4, -(-c // 4) * 4
+    assert tuple(w3p.shape) == (c, 3, ld3) and tuple(w1p.shape) == (c2, ld1)
+    assert w3p.is_contiguous() and w1p.is_contiguous()
+    assert float(w3p[0, 2, 1]) == float(w3[1, 0, 2])
+    assert bool((w3p[:, :, c2:] == 0).all()) and bool((w1p[:, c:] == 0).all())
+    # unpacked: HF's (C/2, C, 3) and (C, C/2, 1) again
+    assert torch.equal(w3p[:, :, :c2].permute(2, 0, 1), w3)
+    assert torch.equal(w1p[:, :c].T[:, :, None], w1)
+
+
+@pytest.mark.parametrize("c,t", [(12, 301), (64, 700)])
+def test_packed_layout_computes_the_block(c, t):
+    """The block computed from the packed layout equals the plain version."""
+    rng = np.random.default_rng(c + t)
+    c2 = c // 2
+    x = (rng.standard_normal((3, c, t)) * 0.5).astype(np.float32)
+    valid = np.array([t, t // 2 + 5, 1], dtype=np.int32)
+    for i, vl in enumerate(valid):
+        x[i, :, vl:] = 0.0
+    args = [torch.from_numpy(a) for a in (
+        x, valid,
+        (rng.standard_normal((c2, c, 3)) * 0.2).astype(np.float32),
+        (rng.standard_normal(c2) * 0.1).astype(np.float32),
+        (rng.standard_normal((c, c2, 1)) * 0.2).astype(np.float32),
+        (rng.standard_normal(c) * 0.1).astype(np.float32),
+    )]
+    want = seanet.resblock_elu_reference(*args)
+    x, v, w3, b3, w1, b1 = args
+    w3p, w1p = seanet.pack_weights(w3, w1)
+    np.testing.assert_allclose(_resblock_from_packed(x, v, w3p, b3, w1p, b1).numpy(),
+                               want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("inference", [False, True])
+def test_engine_codes_unchanged_through_packed_layout(monkeypatch, inference):
+    """The tiny-config engine gives the JAX engine's codes when every
+    resblock is computed from the weights the engine packed at start-up,
+    also when the engine is built and run under torch.inference_mode()."""
+    import contextlib
+
+    from tests.mimi_fixtures import make_oracle, tiny_hf_config
+    from tokenize_audio_tpu.config import EngineConfig as JaxEngineConfig
+    from tokenize_audio_tpu.engine import MimiEncoderEngine as JaxEngine
+    from tokenize_audio_tpu_torch.config import EngineConfig
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+    from tokenize_audio_tpu_torch.mimi.weights import config_from_hf
+
+    model, params, jcfg = make_oracle(tiny_hf_config())
+    kw = dict(batch_size=4, min_bucket_seconds=0.5, max_chunk_seconds=2.0)
+    rng = np.random.default_rng(5)
+    audios = [(rng.standard_normal(n) * 0.3).astype(np.float32) for n in (5000, 19_200, 7777)]
+    want = JaxEngine(params, jcfg, JaxEngineConfig(**kw), num_codebooks=12).encode_batch(audios)
+    calls = []
+
+    def from_packed(x, valid, w3, b3, w1, b1, packed=None):
+        calls.append(x.shape)
+        return _resblock_from_packed(x, valid, packed[0], b3, packed[1], b1)
+
+    monkeypatch.setattr(seanet, "resblock_elu", from_packed)
+    with torch.inference_mode() if inference else contextlib.nullcontext():
+        eng = MimiEncoderEngine(params, config_from_hf(model.config), EngineConfig(**kw),
+                                num_codebooks=12, device="cpu")
+        got = eng.encode_batch(audios)
+    assert calls
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_wrappers_refuse_non_cpu_tensors_without_cuda():

@@ -48,6 +48,7 @@ from tokenize_audio_tpu_torch.engine.metrics import EngineStats
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
 from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
+from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
 
 logger = logging.getLogger(__name__)
 
@@ -72,6 +73,17 @@ def _prune_for_encode(params, num_codebooks: int):
     rvq["acoustic"]["embed"] = rvq["acoustic"]["embed"][:n_ac]
     keep["rvq"] = rvq
     return keep
+
+
+def _pack_for_kernel(params, cfg: MimiConfig):
+    """Give each SEANet block's residual unit its conv weights in the fused
+    resblock kernel's layout as ``"packed"``: packed once, when the
+    parameters reach the device, and passed to every launch."""
+    if cfg.seanet_backend == "kernel":
+        for block in params["blocks"]:
+            res = block["res"][0]
+            res["packed"] = pack_weights(res["c1"]["w"], res["c2"]["w"])
+    return params
 
 
 class MimiEncoderEngine:
@@ -142,8 +154,9 @@ class MimiEncoderEngine:
         # pruned params live on the device for the engine's lifetime: the
         # decoder stack and unused acoustic codebooks are ~half the
         # checkpoint and the encode path never reads them
-        self.params = params_to_torch(
-            _prune_for_encode(params, self.num_codebooks), self.device
+        self.params = _pack_for_kernel(
+            params_to_torch(_prune_for_encode(params, self.num_codebooks), self.device),
+            self.cfg,
         )
 
     # -- internals ---------------------------------------------------------

@@ -163,6 +163,7 @@ def seanet_encode(
                 block["down"]["w"],
                 block["down"]["b"],
                 stride,
+                packed=res.get("packed"),
             )
             if valid is not None:
                 valid = new_v

@@ -48,6 +48,12 @@ def find_nvcc() -> str:
     )
 
 
+def nvcc_command(src: Path, out: Path) -> list:
+    """The ``nvcc`` command that builds ``src`` into the shared library
+    ``out``."""
+    return [find_nvcc(), *FLAGS, "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
@@ -65,14 +71,13 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     seconds = {n: 0.0 for n in names}
     if not todo:
         return seconds
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     t0 = time.perf_counter()
     for n in todo:
         out = library_path(n)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = nvcc_command(CSRC / f"{n}.cu", tmp)
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))

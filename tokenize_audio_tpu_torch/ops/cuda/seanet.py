@@ -13,12 +13,17 @@ it runs ``resblock_elu_reference``, the model's causal_conv1d chain.
 it. The kernel's summation order need not match the convolution library's,
 so its agreement with the plain version is measured (chip_smoke.py), not
 bit-guaranteed.
+
+The kernel reads the conv weights in a packed layout (``pack_weights``).
+The engine packs its parameters once, when it puts them on the device, and
+passes them as ``packed``; a caller that passes none pays for a packing on
+every launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,6 +53,19 @@ def resblock_elu_reference(
     return _elu(y)
 
 
+def pack_weights(w3: torch.Tensor, w1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF-layout w3 (C2, C, 3) and w1 (C, C2, 1) -> the kernel's layouts:
+    w3p (C, 3, ld3) with w3p[c, k, m] = w3[m, c, k] and w1p (C2, ld1) with
+    w1p[j, m] = w1[m, j, 0], zero-padded to ld3 = ceil4(C2), ld1 = ceil4(C)
+    so each row of output channels loads as 16-byte copies."""
+    c2, c, _ = w3.shape
+    w3p = w3.new_zeros((c, 3, -(-c2 // 4) * 4))
+    w3p[:, :, :c2] = w3.permute(1, 2, 0)
+    w1p = w1.new_zeros((c2, -(-c // 4) * 4))
+    w1p[:, :c] = w1[:, :, 0].T
+    return w3p, w1p
+
+
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -58,9 +76,11 @@ def resblock_elu(
     b3: torch.Tensor,
     w1: torch.Tensor,
     b1: torch.Tensor,
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """(B, C, T) float32 -> (B, C, T) float32. A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes the plain version."""
+    kernel (or raises); a CPU tensor takes the plain version. ``packed`` is
+    ``pack_weights(w3, w1)``, made once by the caller."""
     args = (x, valid, w3, b3, w1, b1)
     if all(a.device.type == "cpu" for a in args):
         return resblock_elu_reference(*args)
@@ -94,12 +114,20 @@ def resblock_elu(
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    w3p, w1p = pack_weights(w3, w1) if packed is None else packed
+    if (
+        tuple(w3p.shape) != (c, 3, -(-c2 // 4) * 4)
+        or tuple(w1p.shape) != (c2, -(-c // 4) * 4)
+        or any(p.device != x.device or p.dtype != torch.float32 or not p.is_contiguous()
+               for p in (w3p, w1p))
+    ):
+        raise ValueError("resblock_elu: packed is not pack_weights(w3, w1) on x's device")
     fn = _build.load("seanet_resblock", "resblock_elu_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
-            x.data_ptr(), valid.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), out.data_ptr(), b, c, c2, t, stream,
+            x.data_ptr(), valid.data_ptr(), w3p.data_ptr(), b3.data_ptr(),
+            w1p.data_ptr(), b1.data_ptr(), out.data_ptr(), b, c, c2, t, stream,
         )
     if err != 0:
         raise RuntimeError(f"resblock kernel launch failed: cudaError {err}")
@@ -120,10 +148,11 @@ def seanet_stage(
     wd: torch.Tensor,
     bd: torch.Tensor,
     stride: int,
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full stage: fused resblock + ELU, then the strided causal down-conv
     (PyTorch). Returns (z (B, 2C, T//stride), new_valid)."""
     from tokenize_audio_tpu_torch.mimi.model import causal_conv1d
 
-    ye = resblock_elu(x.contiguous(), valid, w3, b3, w1, b1)
+    ye = resblock_elu(x.contiguous(), valid, w3, b3, w1, b1, packed=packed)
     return causal_conv1d(ye, valid, wd, bd, stride=stride)

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (tokenize_audio_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--baseline-cu OLD.cu] [--candidate-cu OTHER.cu ...]
+                          [--rvq-baseline-cu OLD.cu] [--rvq-candidate-cu OTHER.cu ...]
 
 Needs one CUDA device and ``nvcc`` (the kernels build from
 ``tokenize_audio_tpu_torch/csrc`` at first use). Phases, each of which fails
@@ -9,30 +10,42 @@ the run (non-zero exit, no final result line) if its check fails:
 
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — both kernels compiled for sm_90a, with nvcc's ptxas report;
-  3. kernels  — each kernel against its plain PyTorch version at main-path
+  3. kernels  — each kernel against its plain PyTorch version at large
                 shapes: agreement, CUDA-event times, and the bound the card's
-                FP32 rate and memory rate set for the same work;
+                FP32 rate and memory rate set for the same work; the RVQ
+                line also gives how many clusters of each of its variants
+                the card holds at once;
   4. main     — MimiEncoderEngine at full kyutai/mimi width (random weights,
                 seed 0), 32 codebooks, packed transfer, fifo drain, on a
                 YODAS2-shaped sub-shard through encode_batch(defer=True) and
                 finish(); both kernels' launch counts must rise, and the codes
                 are held against the plain-PyTorch ("torch") backends; every
-                (B, C, T) the main path launches the resblock kernel with is
-                recorded;
+                (B, C, T) the main path launches the resblock kernel with,
+                and every (N, K) it launches the RVQ kernel with, is recorded;
   5. replay   — the resblock kernel at each recorded shape: agreement with
                 its plain version, CUDA-event times and the FP32 bound, summed
                 per C as count x ms (the ``main_path`` entry of its record);
-  6. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
+  6. rvq_replay — the RVQ kernel at each recorded (N, K), on the model's
+                codebooks: code agreement with its plain version (first
+                divergences must be near-ties), CUDA-event times and the FP32
+                bound, summed as count x ms (the ``main_path`` entry of its
+                record);
+  7. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
 Options, for comparing kernels on one card in one run, each another
-version of csrc/seanet_resblock.cu with the same C entry
-``resblock_elu_launch``, built beside the kernel and timed beside it in the
-replay phase: ``--baseline-cu`` takes HF-layout weights (an older commit's
-file) and must agree with the plain version; ``--candidate-cu`` (repeatable,
-named by its file's stem) takes the packed weights of ``pack_weights``, and
-its error is reported, not checked, so an edited copy that drops part of
-the work on purpose can be timed.
+version of a kernel's source with the same C entry, built beside the kernel
+and timed beside it in the replay phases. Of csrc/seanet_resblock.cu
+(``resblock_elu_launch``): ``--baseline-cu`` takes HF-layout weights (an
+older commit's file) and must agree with the plain version;
+``--candidate-cu`` (repeatable, named by its file's stem) takes the packed
+weights of ``pack_weights``, and its error is reported, not checked, so an
+edited copy that drops part of the work on purpose can be timed. Of
+csrc/rvq.cu (``rvq_quantize_launch``): ``--rvq-baseline-cu`` takes the
+(K, V, D) codebooks and e2 (an older commit's file), must agree like the
+kernel, and is also timed at the large shape; ``--rvq-candidate-cu``
+(repeatable, named by its file's stem) takes the codebooks of
+``pack_codebooks`` too, and its code agreement is reported, not checked.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -124,27 +137,74 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rvq_first_divergence_margins(torch, x, embeds, got, want):
-    """For each row whose kernel codes differ from the plain codes, replay
-    the plain chain up to the first differing book and return the relative
-    margin (d2[kernel idx] - d2[plain idx]) / |d2[plain idx]| there, and
-    the absolute distance gap."""
-    rows = torch.nonzero((got != want).any(dim=1)).flatten().tolist()
-    margins, gaps = [], []
-    for r in rows:
-        k = int(torch.nonzero(got[r] != want[r])[0])
-        res = x[r].clone()
-        for j in range(k):
-            res = res - embeds[j, want[r, j].long()]
-        e = embeds[k]
-        d2 = (res * res).sum() - 2.0 * (e @ res) + (e * e).sum(-1)
-        a, b = d2[got[r, k].long()], d2[want[r, k].long()]
-        gaps.append(float((a - b).abs()))
-        margins.append(float((a - b) / b.abs()))
-    return rows, margins, gaps
+def rvq_extra_run(name, fn, x, embeds, packed, out, stream):
+    """A zero-arg launcher of another build of csrc/rvq.cu on these inputs:
+    ``rvq_baseline`` takes the (K, V, D) codebooks and e2, the others the
+    packed codebooks and the (K, V, D) ones, as the kernel does."""
+    n, d = x.shape
+    k, v, _ = embeds.shape
+    args = (x, embeds, packed[1], out) if name == "rvq_baseline" else (
+        x, packed[0], packed[1], embeds, out)
+    ptrs = [a.data_ptr() for a in args]
+
+    def run():
+        check(fn(*ptrs, n, d, k, v, stream) == 0, f"{name} launch failed")
+
+    return run
 
 
-def phase_kernels(torch, peak_flops, peak_bw):
+def code_share(got, want) -> float:
+    """Share of equal codes, counted exactly (a float32 mean of all-equal
+    codes can read 1 - 2**-24)."""
+    return int((got == want).sum()) / got.numel()
+
+
+def rvq_agreement(x, embeds, got, want, what):
+    """Share of equal codes and the largest relative margin at a first
+    divergence; fails unless >= 0.999 and every divergence is a near-tie."""
+    from tokenize_audio_tpu_torch.ops.cuda import rvq
+
+    match = code_share(got, want)
+    rows, margins, gaps = rvq.first_divergence_margins(x, embeds, got, want)
+    max_margin = max(margins, default=0.0)
+    check(match >= 0.999, f"{what}: code match {match} < 0.999")
+    check(max_margin < 1e-6, f"{what}: first divergence not a near-tie: margin {max_margin}")
+    return match, len(rows), max_margin, max(gaps, default=0.0)
+
+
+def time_rvq_extras(torch, row, extras, x, embeds, packed, want, what):
+    """Each of ``extras`` (name -> the C entry of another build of
+    csrc/rvq.cu) on these inputs: ``<name>_code_match`` and CUDA-event
+    ``<name>_ms`` into ``row``; ``rvq_baseline`` must agree like the
+    kernel."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, fn in extras.items():
+        out = torch.empty_like(want)
+        run = rvq_extra_run(name, fn, x, embeds, packed, out, stream)
+        run()
+        torch.cuda.synchronize()
+        if name == "rvq_baseline":
+            row[f"{name}_code_match"] = rvq_agreement(x, embeds, out, want, f"{name} {what}")[0]
+        else:
+            row[f"{name}_code_match"] = code_share(out, want)
+        row[f"{name}_ms"] = cuda_ms(torch, run)
+
+
+def rvq_max_active_clusters():
+    """How many clusters of each RVQ kernel variant the card holds at once
+    (D = 256), by cudaOccupancyMaxActiveClusters."""
+    from tokenize_audio_tpu_torch.ops.cuda import _build
+
+    count = _build.load("rvq", "rvq_variant_count", [])()
+    out = (ctypes.c_int * count)()
+    fn = _build.load("rvq", "rvq_max_active_clusters",
+                     [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+    err = fn(RVQ_SHAPE["d"], ctypes.addressof(out), count)
+    check(err == 0, f"rvq_max_active_clusters: cudaError {err}")
+    return list(out)
+
+
+def phase_kernels(torch, peak_flops, peak_bw, rvq_extras):
     from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
     from tokenize_audio_tpu_torch.config import ieee_fp32
     from tokenize_audio_tpu_torch.ops.cuda import rvq, seanet
@@ -162,21 +222,21 @@ def phase_kernels(torch, peak_flops, peak_bw):
         )[:k]
         embeds = torch.from_numpy(np.ascontiguousarray(embeds)).to(dev)
         x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
-        got = rvq.rvq_quantize(x, embeds)
+        packed = rvq.pack_codebooks(embeds)  # once, as the engine does
+        got = rvq.rvq_quantize(x, embeds, packed=packed)
         want = rvq.rvq_quantize_reference(x, embeds)
         torch.cuda.synchronize()
-        match = float((got == want).float().mean())
-        rows, margins, gaps = rvq_first_divergence_margins(torch, x, embeds, got, want)
-        max_margin = max(margins, default=0.0)
-        check(match >= 0.999, f"rvq kernel code match {match} < 0.999")
-        check(max_margin < 1e-6, f"rvq first divergence not a near-tie: margin {max_margin}")
-        ms = cuda_ms(torch, lambda: rvq.rvq_quantize(x, embeds))
+        match, n_rows, max_margin, gap = rvq_agreement(x, embeds, got, want, "rvq kernel")
+        ms = cuda_ms(torch, lambda: rvq.rvq_quantize(x, embeds, packed=packed))
         plain_ms = cuda_ms(torch, lambda: rvq.rvq_quantize_reference(x, embeds))
+        others = {}
+        time_rvq_extras(torch, others, rvq_extras, x, embeds, packed, want, f"N={n} K={k}")
         # the main path's batches are small: time one at its mean row count
         xs = x[:RVQ_SMALL_N].contiguous()
+        packed_ac = (packed[0][1:], packed[1][1:])
         small = {
             "N": RVQ_SMALL_N, "K": k - 1,
-            "ms": cuda_ms(torch, lambda: rvq.rvq_quantize(xs, embeds[1:])),
+            "ms": cuda_ms(torch, lambda: rvq.rvq_quantize(xs, embeds[1:], packed=packed_ac)),
             "plain_ms": cuda_ms(torch, lambda: rvq.rvq_quantize_reference(xs, embeds[1:])),
         }
         flops = 2.0 * k * n * v * d
@@ -188,7 +248,7 @@ def phase_kernels(torch, peak_flops, peak_bw):
             "source": "tokenize_audio_tpu_torch/csrc/rvq.cu",
             "replaces": "tokenize_audio_tpu/ops/pallas/rvq.py:82",
             "launches": None,
-            "max_abs_err": max(gaps, default=0.0),
+            "max_abs_err": gap,
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": b_ms,
@@ -196,10 +256,13 @@ def phase_kernels(torch, peak_flops, peak_bw):
             "library_ms": None,
             "shape": {"N": n, "D": d, "V": v, "K": k},
             "code_match": match,
-            "diverging_rows": len(rows),
+            "diverging_rows": n_rows,
             "max_rel_margin": max_margin,
+            **others,
             "small_batch": small,
+            "max_active_clusters_per_variant": rvq_max_active_clusters(),
         })
+        del packed, packed_ac
         emit({"phase": "kernel", **records[-1]})
 
         # --- SEANet resblock: the four stage shapes of a 16 x 10 s batch
@@ -283,7 +346,7 @@ def phase_main(torch):
 
     cfg = MimiConfig()
     params = params_to_torch(random_params(cfg, seed=SEED))  # on the card
-    shapes = collections.Counter()
+    shapes, rvq_shapes = collections.Counter(), collections.Counter()
     rng = np.random.default_rng(SEED + 1)
     audios = make_subshard(rng)
     audio_seconds = sum(len(a) for a in audios) / SR
@@ -305,6 +368,14 @@ def phase_main(torch):
         shapes[tuple(x.shape)] += 1
         return orig_rb(x, *args, **kwargs)
 
+    # the RVQ kernel's (N, K), the same way
+    orig_rvq = rvq.rvq_quantize
+
+    def rvq_spy(x, embeds, *args, **kwargs):
+        check(kwargs.get("packed") is not None, "an RVQ launch without the packed codebooks")
+        rvq_shapes[(x.shape[0], embeds.shape[0])] += 1
+        return orig_rvq(x, embeds, *args, **kwargs)
+
     model.transformer_apply = spy
     try:
         engine = MimiEncoderEngine(params, cfg, num_codebooks=32)
@@ -312,6 +383,7 @@ def phase_main(torch):
         torch.cuda.synchronize()
         engine.stats = EngineStats()
         seanet.resblock_elu = rb_spy
+        rvq.rvq_quantize = rvq_spy
         rvq.rvq_quantize.launches = 0
         seanet.resblock_elu.launches = 0
         t0 = time.perf_counter()
@@ -326,10 +398,13 @@ def phase_main(torch):
     finally:
         model.transformer_apply = orig_tfm
         seanet.resblock_elu = orig_rb
+        rvq.rvq_quantize = orig_rvq
     check(seen and not any(seen.values()), f"TF32 flags inside encode: {seen}")
     check(all(n > 0 for n in launches.values()), f"kernel launches on the main path: {launches}")
     check(sum(shapes.values()) == launches["resblock_elu"],
           f"resblock shapes {sum(shapes.values())} vs launches {launches['resblock_elu']}")
+    check(sum(rvq_shapes.values()) == launches["rvq_quantize"],
+          f"rvq shapes {sum(rvq_shapes.values())} vs launches {launches['rvq_quantize']}")
     check(len(codes) == len(audios), "one code array per utterance")
     for a, c in zip(audios, codes):
         check(c.shape == (32, -(-len(a) // SPF)), f"codes shape {c.shape} for {len(a)} samples")
@@ -375,7 +450,7 @@ def phase_main(torch):
     emit({"phase": "main_ab", **ab})
     emit({"phase": "main_profile", "backend": "kernel", **profile})
     emit({"phase": "main_profile", "backend": "torch", **plain_profile})
-    return launches, shapes
+    return launches, shapes, rvq_shapes
 
 
 def interleaved_rtf(torch, engines, audios, audio_seconds, pairs: int = AB_PAIRS):
@@ -399,8 +474,9 @@ def interleaved_rtf(torch, engines, audios, audio_seconds, pairs: int = AB_PAIRS
 
 def device_breakdown(torch, run, top: int = 12):
     """One profiled run of ``run``: device time by kernel name (top
-    ``top``), total device time, wall time and the device's busy share
-    (union of device intervals over the wall)."""
+    ``top``), the summed time of each of this port's kernels (all its
+    template instances), total device time, wall time and the device's busy
+    share (union of device intervals over the wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -430,14 +506,18 @@ def device_breakdown(torch, run, top: int = 12):
         "device_ms": total / 1e3,
         "busy_share": busy / 1e6 / wall,
         "top_kernels_ms": [[n, t / 1e3] for n, t in top_k],
+        "port_kernels_ms": {
+            k: sum(t for n, t in by_name.items() if k in n) / 1e3
+            for k in ("rvq_kernel", "resblock_kernel")
+        },
     }
 
 
-def start_extra_build(name: str, src: str):
-    """Start ``nvcc`` on another version of csrc/seanet_resblock.cu into
+def start_extra_build(name: str, src: str, entry: str, argtypes):
+    """Start ``nvcc`` on another version of a kernel's source into
     ``lib<name>.so``; returns a function that waits for it and returns its
-    ``resblock_elu_launch`` and ptxas report."""
-    from tokenize_audio_tpu_torch.ops.cuda import _build, seanet
+    C entry ``entry`` and ptxas report."""
+    from tokenize_audio_tpu_torch.ops.cuda import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _build.BUILD_DIR / f"lib{name}.so"
@@ -447,8 +527,8 @@ def start_extra_build(name: str, src: str):
     def finish():
         log, _ = proc.communicate()
         check(proc.returncode == 0, f"{name} build of {src} failed:\n{log}")
-        fn = ctypes.CDLL(str(out)).resblock_elu_launch
-        fn.argtypes = seanet._ARGTYPES
+        fn = getattr(ctypes.CDLL(str(out)), entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         return fn, [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
 
@@ -540,6 +620,58 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras):
     return summary
 
 
+def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras):
+    """The RVQ kernel at every (N, K) the main path launched it with, on
+    the model's codebooks (K = 1: the semantic book, else the first K
+    acoustic ones) and standard-normal rows: code agreement with the plain
+    version (>= 0.999, first divergences near-ties), CUDA-event times of
+    the kernel and the plain version, and the FP32 bound; and the time and
+    agreement of each of ``extras`` (name -> the C entry of another build
+    of csrc/rvq.cu; ``rvq_baseline`` must agree like the kernel). Returns
+    the sums, each shape weighted by its launch count."""
+    from tokenize_audio_tpu_torch.config import ieee_fp32
+    from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
+    from tokenize_audio_tpu_torch.ops.cuda import rvq
+
+    dev = torch.device("cuda")
+    params = random_params(MimiConfig(), seed=SEED)
+    heads = {h: torch.from_numpy(params["rvq"][h]["embed"]).to(dev)
+             for h in ("semantic", "acoustic")}
+    rng = np.random.default_rng(SEED + 4)
+    rows = []
+    with ieee_fp32():
+        for (n, k), count in sorted(rvq_shapes.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+            embeds = (heads["semantic"] if k == 1 else heads["acoustic"])[:k].contiguous()
+            packed = rvq.pack_codebooks(embeds)
+            v, d = embeds.shape[1:]
+            x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+            got = rvq.rvq_quantize(x, embeds, packed=packed)
+            want = rvq.rvq_quantize_reference(x, embeds)
+            torch.cuda.synchronize()
+            match, n_rows, margin, _ = rvq_agreement(x, embeds, got, want, f"rvq N={n} K={k}")
+            b_ms, b_by = bound_ms(2.0 * k * n * v * d, 4.0 * (k * v * d + n * d + n * k),
+                                  peak_flops, peak_bw)
+            row = {"N": n, "K": k, "count": count, "code_match": match, "diverging_rows": n_rows,
+                   "max_rel_margin": margin,
+                   "ms": cuda_ms(torch, lambda: rvq.rvq_quantize(x, embeds, packed=packed)),
+                   "plain_ms": cuda_ms(torch, lambda: rvq.rvq_quantize_reference(x, embeds)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            time_rvq_extras(torch, row, extras, x, embeds, packed, want, f"N={n} K={k}")
+            rows.append(row)
+    total = {"launches": sum(r["count"] for r in rows), "shapes": len(rows),
+             "rows": sum(r["count"] * r["N"] for r in rows)}
+    for key in rows[0]:
+        if key.endswith("ms"):
+            total[key] = sum(r["count"] * r[key] for r in rows)
+        elif key.endswith("code_match"):
+            total[f"min_{key}"] = min(r[key] for r in rows)
+    total["max_rel_margin"] = max(r["max_rel_margin"] for r in rows)
+    summary = {"total": total, "per_shape": rows,
+               "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed"}
+    emit({"phase": "rvq_replay", **summary})
+    return summary
+
+
 def phase_tie(torch):
     from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
     from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
@@ -566,13 +698,17 @@ def main(argv=None) -> int:
                     help="an older seanet_resblock.cu (HF-layout weights) to time beside the kernel")
     ap.add_argument("--candidate-cu", action="append", default=[],
                     help="another seanet_resblock.cu (packed weights) to time beside the kernel")
+    ap.add_argument("--rvq-baseline-cu",
+                    help="an older rvq.cu ((K, V, D) codebooks and e2) to time beside the kernel")
+    ap.add_argument("--rvq-candidate-cu", action="append", default=[],
+                    help="another rvq.cu (packed codebooks) to time beside the kernel")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from tokenize_audio_tpu_torch.ops.cuda import _build
+    from tokenize_audio_tpu_torch.ops.cuda import _build, rvq, seanet
 
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -582,28 +718,41 @@ def main(argv=None) -> int:
           "peaks": {"variant": variant, "fp32_flops": peak_flops, "hbm_bytes_per_s": peak_bw}})
     try:
         t0 = time.perf_counter()
-        pending = {}
+        pending, rvq_pending = {}, {}
+        rb = ("resblock_elu_launch", seanet._ARGTYPES)
+        old_rvq = ("rvq_quantize_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
         if args.baseline_cu:
-            pending["baseline"] = start_extra_build("baseline", args.baseline_cu)
+            pending["baseline"] = start_extra_build("baseline", args.baseline_cu, *rb)
         for src in args.candidate_cu:
-            pending[Path(src).stem] = start_extra_build(Path(src).stem, src)
+            pending[Path(src).stem] = start_extra_build(Path(src).stem, src, *rb)
+        if args.rvq_baseline_cu:
+            rvq_pending["rvq_baseline"] = start_extra_build(
+                "rvq_baseline", args.rvq_baseline_cu, *old_rvq)
+        for src in args.rvq_candidate_cu:
+            rvq_pending[Path(src).stem] = start_extra_build(
+                Path(src).stem, src, "rvq_quantize_launch", rvq._ARGTYPES)
         seconds = _build.build()
         ptxas = {
             k: [ln.strip() for ln in _build.build_log(k).splitlines()
                 if "registers" in ln or "spill" in ln]
             for k in _build.KERNELS
         }
-        extras = {}
+        extras, rvq_extras = {}, {}
         for extra, done in pending.items():
             extras[extra], ptxas[extra] = done()
+        for extra, done in rvq_pending.items():
+            rvq_extras[extra], ptxas[extra] = done()
         emit({"phase": "build", "seconds": seconds, "wall_seconds": time.perf_counter() - t0,
               "ptxas": ptxas})
-        records = phase_kernels(torch, peak_flops, peak_bw)
-        launches, shapes = phase_main(torch)
+        records = phase_kernels(torch, peak_flops, peak_bw, rvq_extras)
+        launches, shapes, rvq_shapes = phase_main(torch)
         for r in records:
             r["launches"] = launches[r["name"]]
         main_path = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
         next(r for r in records if r["name"] == "resblock_elu")["main_path"] = main_path
+        rvq_main = phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, rvq_extras)
+        next(r for r in records if r["name"] == "rvq_quantize")["main_path"] = rvq_main["total"]
         phase_tie(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

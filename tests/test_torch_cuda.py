@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tokenize_audio_tpu_torch.config import EngineConfig
+from tokenize_audio_tpu_torch.config import EngineConfig, ieee_fp32
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
 from tokenize_audio_tpu_torch.mimi import MimiConfig, encode, params_to_torch, random_params
 from tokenize_audio_tpu_torch.ops.cuda import rvq, seanet
@@ -34,17 +34,59 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,d,k,v", [(300, 16, 4, 64), (33, 40, 3, 100), (1000, 256, 2, 2048)])
+def _rows_with_near_ties(x, e, rel=1e-6):
+    """Rows of the plain chain that, at some book, have a runner-up within
+    ``rel`` (relative) of the minimal distance: only there may another
+    summation order pick another code."""
+    residual, near = x, torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for book in e:
+        d2 = (residual * residual).sum(-1, keepdim=True) - 2.0 * (residual @ book.T) + (
+            book * book).sum(-1)[None, :]
+        two = torch.topk(d2, 2, dim=-1, largest=False).values
+        near |= (two[:, 1] - two[:, 0]) <= rel * two[:, 0].abs()
+        residual = residual - book[torch.argmin(d2, dim=-1)]
+    return near
+
+
+# small and ragged shapes, then the main path's width (D = 256, V = 2048,
+# 31 books) at its row counts and just past each of pick()'s thresholds
+# (csrc/rvq.cu: 112, 240, 336, 720 and 2048 rows)
+RVQ_CASES = [(300, 16, 4, 64), (33, 40, 3, 100), (1000, 256, 2, 2048)] + [
+    (n, 256, 31, 2048) for n in (1, 13, 17, 31, 33, 113, 241, 267, 337, 721, 824, 1025, 2049)
+]
+
+
+@pytest.mark.parametrize("n,d,k,v", RVQ_CASES)
 def test_rvq_kernel_equals_plain(cuda, n, d, k, v):
+    """Codes equal the plain version's on every row whose chain has no
+    near-tie, and on at least 99.9 % of entries; a call with the packed
+    codebooks and one that packs at the launch give the same codes."""
     rng = np.random.default_rng(n)
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
     e = torch.from_numpy(rng.standard_normal((k, v, d)).astype(np.float32)).to(cuda)
     before = rvq.rvq_quantize.launches
     got = rvq.rvq_quantize(x, e)
     assert rvq.rvq_quantize.launches == before + 1
-    want = rvq.rvq_quantize_reference(x, e)
+    assert torch.equal(rvq.rvq_quantize(x, e, packed=rvq.pack_codebooks(e)), got)
+    assert rvq.rvq_quantize.launches == before + 2
+    with ieee_fp32():
+        want = rvq.rvq_quantize_reference(x, e)
+        near = _rows_with_near_ties(x, e)
     assert got.dtype == torch.int32 and got.shape == (n, k)
-    assert torch.equal(got, want)
+    assert torch.equal(got[~near], want[~near])
+    assert float((got == want).float().mean()) >= 0.999
+    _, margins, _ = rvq.first_divergence_margins(x, e, got, want)
+    assert max(margins, default=0.0) < 1e-6
+
+
+def test_rvq_kernel_refuses_a_wrong_packing(cuda):
+    e = torch.zeros((2, 10, 16), device=cuda)
+    x = torch.zeros((4, 16), device=cuda)
+    cb, e2 = rvq.pack_codebooks(e)
+    with pytest.raises(ValueError, match="packed"):
+        rvq.rvq_quantize(x, e, packed=(e, e2))
+    with pytest.raises(ValueError, match="packed"):
+        rvq.rvq_quantize(x, e, packed=(cb, e2[:1]))
 
 
 def test_rvq_kernel_first_index_ties(cuda):
@@ -179,8 +221,8 @@ def test_engine_on_card_equals_cpu(cuda):
 
 def test_engine_under_inference_mode_on_card(cuda):
     """An engine built and run under torch.inference_mode() (its weights,
-    packed ones included, are inference tensors) gives the codes of one
-    built outside it."""
+    packed conv weights and codebooks included, are inference tensors)
+    gives the codes of one built outside it."""
     params = random_params(TINY, seed=2)
     ecfg = EngineConfig(batch_size=4, min_bucket_seconds=0.5, max_chunk_seconds=2.0)
     rng = np.random.default_rng(6)
@@ -188,8 +230,11 @@ def test_engine_under_inference_mode_on_card(cuda):
     want = MimiEncoderEngine(params, TINY, ecfg).encode_batch(audios)
     with torch.inference_mode():
         engine = MimiEncoderEngine(params, TINY, ecfg)
-        s0 = seanet.resblock_elu.launches
+        s0, r0 = seanet.resblock_elu.launches, rvq.rvq_quantize.launches
         got = engine.encode_batch(audios)
     assert seanet.resblock_elu.launches > s0
+    # the codebooks were packed once, under inference mode, and searched
+    assert all("packed" in h for h in engine.params["rvq"].values())
+    assert rvq.rvq_quantize.launches > r0
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)

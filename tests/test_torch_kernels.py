@@ -172,6 +172,74 @@ def test_engine_codes_unchanged_through_packed_layout(monkeypatch, inference):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("k,v,d", [(1, 2048, 256), (3, 100, 40), (2, 7, 16), (0, 8, 16)])
+def test_packed_codebooks_unpack_to_embeds(k, v, d):
+    """The packed codebooks unpack to the (K, V, D) input, their columns
+    past V are zero, and their e2 is the plain expression, bit for bit."""
+    rng = np.random.default_rng(v + d)
+    e = torch.from_numpy(rng.standard_normal((k, v, d)).astype(np.float32))
+    cb, e2 = rvq.pack_codebooks(e)
+    vp = -(-v // 4) * 4
+    assert tuple(cb.shape) == (k, d, vp) and tuple(e2.shape) == (k, v)
+    assert cb.is_contiguous() and e2.is_contiguous()
+    assert torch.equal(cb[:, :, :v].transpose(1, 2), e)
+    assert bool((cb[:, :, v:] == 0).all())
+    assert torch.equal(e2, (e * e).sum(-1))
+
+
+def _rvq_from_packed(x, embeds, packed):
+    """The plain chain reading the codebooks only through their packed
+    layout (cb (K, D, VP), e2 (K, V))."""
+    cb, e2 = packed
+    v = e2.shape[1]
+    residual, codes = x, []
+    for k in range(cb.shape[0]):
+        e = cb[k, :, :v].T.contiguous()  # (V, D), unpacked
+        x2 = (residual * residual).sum(-1, keepdim=True)
+        idx = torch.argmin(x2 - 2.0 * (residual @ e.T) + e2[k][None, :], dim=-1)
+        codes.append(idx.to(torch.int32))
+        residual = residual - e[idx]
+    return torch.stack(codes, dim=1)
+
+
+@pytest.mark.parametrize("inference", [False, True])
+def test_engine_codes_unchanged_through_packed_codebooks(monkeypatch, inference):
+    """The tiny-config engine gives the JAX engine's codes when every RVQ
+    search is computed from the codebooks the engine packed at start-up,
+    also when the engine is built and run under torch.inference_mode()."""
+    import contextlib
+
+    from tests.mimi_fixtures import make_oracle, tiny_hf_config
+    from tokenize_audio_tpu.config import EngineConfig as JaxEngineConfig
+    from tokenize_audio_tpu.engine import MimiEncoderEngine as JaxEngine
+    from tokenize_audio_tpu_torch.config import EngineConfig
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+    from tokenize_audio_tpu_torch.mimi.weights import config_from_hf
+
+    model, params, jcfg = make_oracle(tiny_hf_config())
+    kw = dict(batch_size=4, min_bucket_seconds=0.5, max_chunk_seconds=2.0)
+    rng = np.random.default_rng(7)
+    audios = [(rng.standard_normal(n) * 0.3).astype(np.float32) for n in (4000, 19_200, 9999)]
+    want = JaxEngine(params, jcfg, JaxEngineConfig(**kw), num_codebooks=12).encode_batch(audios)
+    calls = []
+
+    def from_packed(x, embeds, packed=None):
+        calls.append((tuple(x.shape), tuple(packed[0].shape)))
+        assert packed[0].shape[0] == embeds.shape[0]
+        return _rvq_from_packed(x, embeds, packed)
+
+    monkeypatch.setattr(rvq, "rvq_quantize", from_packed)
+    with torch.inference_mode() if inference else contextlib.nullcontext():
+        eng = MimiEncoderEngine(params, config_from_hf(model.config), EngineConfig(**kw),
+                                num_codebooks=12, device="cpu")
+        got = eng.encode_batch(audios)
+    # a semantic and an acoustic search per batch, each with its own books
+    assert calls and {c[1][0] for c in calls} == {1, 11}
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_wrappers_refuse_non_cpu_tensors_without_cuda():
     """A tensor off the CPU never takes the plain version: it launches the
     kernel on CUDA or raises (here: the meta device)."""

@@ -48,6 +48,7 @@ from tokenize_audio_tpu_torch.engine.metrics import EngineStats
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
 from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
+from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
 from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
 
 logger = logging.getLogger(__name__)
@@ -77,12 +78,16 @@ def _prune_for_encode(params, num_codebooks: int):
 
 def _pack_for_kernel(params, cfg: MimiConfig):
     """Give each SEANet block's residual unit its conv weights in the fused
-    resblock kernel's layout as ``"packed"``: packed once, when the
-    parameters reach the device, and passed to every launch."""
+    resblock kernel's layout, and each RVQ head its codebooks in the RVQ
+    kernel's, as ``"packed"``: packed once, when the parameters reach the
+    device, and passed to every launch."""
     if cfg.seanet_backend == "kernel":
         for block in params["blocks"]:
             res = block["res"][0]
             res["packed"] = pack_weights(res["c1"]["w"], res["c2"]["w"])
+    if cfg.rvq_backend == "kernel":
+        for head in params["rvq"].values():
+            head["packed"] = pack_codebooks(head["embed"])
     return params
 
 

@@ -309,24 +309,31 @@ def split_rvq_encode(
         )
     b, _, t = emb.shape
 
-    def quantize(proj, embeds):
+    def quantize(proj, head, k):
         # (B, D, T) input projection (a 1x1 conv, as HF's input_proj) ->
-        # (B, K, T) codes
+        # (B, K, T) codes from the head's first k books; the kernel takes
+        # the codebooks the engine packed once (encoder._pack_for_kernel)
         x = proj.transpose(1, 2)  # (B, T, D)
+        embeds = head["embed"][:k]
         if backend == "torch":
             return rvq_quantize(x, embeds)
-        codes = rvq_ops.rvq_quantize(x.reshape(b * t, -1).contiguous(), embeds.contiguous())
+        packed = head.get("packed")
+        if packed is not None:
+            packed = (packed[0][:k], packed[1][:k])
+        codes = rvq_ops.rvq_quantize(
+            x.reshape(b * t, -1).contiguous(), embeds.contiguous(), packed=packed
+        )
         return codes.reshape(b, t, -1).transpose(1, 2)
 
     sem = params["semantic"]
     n_sem = sem["embed"].shape[0]
     sem_in = F.conv1d(emb, sem["in_proj"][:, :, None])
-    codes = quantize(sem_in, sem["embed"][: min(n_sem, num_quantizers)])
+    codes = quantize(sem_in, sem, min(n_sem, num_quantizers))
     n_ac = num_quantizers - codes.shape[1]
     if n_ac > 0:
         ac = params["acoustic"]
         ac_in = F.conv1d(emb, ac["in_proj"][:, :, None])
-        codes = torch.cat([codes, quantize(ac_in, ac["embed"][:n_ac])], dim=1)
+        codes = torch.cat([codes, quantize(ac_in, ac, n_ac)], dim=1)
     return codes
 
 

@@ -6,11 +6,18 @@ embeddings and embeds (K, V, D) float32 -> codes (N, K) int32, each book
 searched on the residual the previous books left. On a CUDA tensor it
 launches the hand-written kernel (csrc/rvq.cu); on a CPU tensor it runs
 ``rvq_quantize_reference``, the same chain in PyTorch ops.
+
+The kernel reads the codebooks for its distance products in a packed
+layout (``pack_codebooks``: (K, D, V) and the codewords' squared norms).
+The engine packs its codebooks once, when it puts them on the device, and
+passes them as ``packed``; a caller that passes none pays for a packing on
+every launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,13 +44,51 @@ def rvq_quantize_reference(x: torch.Tensor, embeds: torch.Tensor) -> torch.Tenso
     return torch.stack(codes, dim=1)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def pack_codebooks(embeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, V, D) codebooks -> the kernel's inputs: cb (K, D, VP) with
+    cb[k, d, v] = embeds[k, v, d], zero-padded to VP = ceil4(V) so each
+    depth row of a codebook chunk loads as 16-byte copies, and e2 (K, V),
+    the codewords' squared norms by the plain version's expression."""
+    k, v, d = embeds.shape
+    cb = embeds.new_zeros((k, d, -(-v // 4) * 4))
+    cb[:, :, :v] = embeds.transpose(1, 2)
+    return cb, (embeds * embeds).sum(-1).contiguous()
 
 
-def rvq_quantize(x: torch.Tensor, embeds: torch.Tensor) -> torch.Tensor:
+def first_divergence_margins(x, embeds, got, want):
+    """For each row whose codes ``got`` differ from the plain codes
+    ``want``, replay the plain chain up to the first differing book and
+    return the rows, the relative margin (d2[got idx] - d2[want idx]) /
+    |d2[want idx]| there, and the absolute distance gap. A kernel that only
+    sums in another order differs at near-ties alone."""
+    rows = torch.nonzero((got != want).any(dim=1)).flatten().tolist()
+    margins, gaps = [], []
+    with ieee_fp32():
+        for r in rows:
+            k = int(torch.nonzero(got[r] != want[r])[0])
+            res = x[r].clone()
+            for j in range(k):
+                res = res - embeds[j, want[r, j].long()]
+            e = embeds[k]
+            d2 = (res * res).sum() - 2.0 * (e @ res) + (e * e).sum(-1)
+            a, b = d2[got[r, k].long()], d2[want[r, k].long()]
+            gaps.append(float((a - b).abs()))
+            margins.append(float((a - b) / b.abs()))
+    return rows, margins, gaps
+
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def rvq_quantize(
+    x: torch.Tensor,
+    embeds: torch.Tensor,
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
     """Codes (N, K) int32 for x (N, D) and embeds (K, V, D), both float32.
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version."""
+    plain version. ``packed`` is ``pack_codebooks(embeds)``, made once by
+    the caller."""
     if x.device.type == "cpu" and embeds.device.type == "cpu":
         return rvq_quantize_reference(x, embeds)
     if x.device.type != "cuda" or embeds.device != x.device:
@@ -65,13 +110,19 @@ def rvq_quantize(x: torch.Tensor, embeds: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, k), dtype=torch.int32, device=x.device)
     if n == 0 or k == 0:
         return out
-    # |e|^2 outside the kernel, by the same expression as the plain version
-    e2 = (embeds * embeds).sum(-1).contiguous()  # (K, V)
+    cb, e2 = pack_codebooks(embeds) if packed is None else packed
+    if (
+        tuple(cb.shape) != (k, d, -(-v // 4) * 4)
+        or tuple(e2.shape) != (k, v)
+        or any(p.device != x.device or p.dtype != torch.float32 or not p.is_contiguous()
+               for p in (cb, e2))
+    ):
+        raise ValueError("rvq_quantize: packed is not pack_codebooks(embeds) on x's device")
     fn = _build.load("rvq", "rvq_quantize_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
-            x.data_ptr(), embeds.data_ptr(), e2.data_ptr(), out.data_ptr(),
+            x.data_ptr(), cb.data_ptr(), e2.data_ptr(), embeds.data_ptr(), out.data_ptr(),
             n, d, k, v, stream,
         )
     if err != 0:

@@ -22,15 +22,30 @@ the run (non-zero exit, no final result line) if its check fails:
                 are held against the plain-PyTorch ("torch") backends; every
                 (B, C, T) the main path launches the resblock kernel with,
                 and every (N, K) it launches the RVQ kernel with, is recorded;
-  5. replay   — the resblock kernel at each recorded shape: agreement with
+  5. yodas2   — the YODAS2 shard processor through its CLI entry point,
+                ``datasets.yodas2.main`` (dir: source, local hub, default
+                engine flags: kernel backends, 32 codebooks, packed
+                transfer, fifo drain, fetch-ahead 1), on a two-sub-shard
+                mirror of 24 entries each (WAV 24 kHz, one FLAC and one
+                16 kHz WAV per sub-shard, lognormal chunks with a degenerate
+                one and one over 60 s): the report, the hub JSON, both
+                kernels' launch counts, the TF32 flags at every conv1d and
+                transformer call in every thread (the decode-prefetch
+                threads resample on the card), and the codes against a
+                direct encode_batch of the same chunks; stage seconds, the
+                processor's and the direct engine's real-time factors, a
+                profiled run's device breakdown, and a 16 -> 24 kHz resample
+                on the card against the CPU with TF32 switched on by the
+                caller;
+  6. replay   — the resblock kernel at each recorded shape: agreement with
                 its plain version, CUDA-event times and the FP32 bound, summed
                 per C as count x ms (the ``main_path`` entry of its record);
-  6. rvq_replay — the RVQ kernel at each recorded (N, K), on the model's
+  7. rvq_replay — the RVQ kernel at each recorded (N, K), on the model's
                 codebooks: code agreement with its plain version (first
                 divergences must be near-ties), CUDA-event times and the FP32
                 bound, summed as count x ms (the ``main_path`` entry of its
                 record);
-  7. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
+  8. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
 Options, for comparing kernels on one card in one run, each another
@@ -61,6 +76,8 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -477,7 +494,6 @@ def device_breakdown(torch, run, top: int = 12):
     ``top``), the summed time of each of this port's kernels (all its
     template instances), total device time, wall time and the device's busy
     share (union of device intervals over the wall)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -486,6 +502,14 @@ def device_breakdown(torch, run, top: int = 12):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return profile_summary(prof, wall, top)
+
+
+def profile_summary(prof, wall: float, top: int = 12):
+    """``device_breakdown``'s summary of a finished profile of ``wall``
+    seconds."""
+    from torch.autograd import DeviceType
+
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
         for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -511,6 +535,295 @@ def device_breakdown(torch, run, top: int = 12):
             for k in ("rvq_kernel", "resblock_kernel")
         },
     }
+
+
+YODAS2_SHARD, YODAS2_SUBSHARDS, YODAS2_ENTRIES = "en000", 2, 24
+# the mirror writer (tests/torch_yodas2_mirror.py) and the FLAC encoder it
+# uses are imported by their own names: an installed ``tests`` package would
+# shadow ``tests.*``
+TESTS_DIR = Path(__file__).resolve().parent / "tests"
+YODAS2_STAGES = ("source_fetch", "host_extract", "host_decode", "resample", "host_slice",
+                 "host_serialize", "host_assemble", "hub_upload", "pad", "dispatch", "fetch")
+
+
+def lognormal_chunks(rng, seconds: float, start_cs: int = 0):
+    """Consecutive chunks (start_cs, end_cs) of lognormal 1-30 s (median
+    6 s, as make_subshard) with gaps under 0.5 s, inside ``seconds``; at
+    least one."""
+    end_cs, t, chunks = int(seconds * 100), start_cs, []
+    while True:
+        d = int(np.clip(rng.lognormal(math.log(6.0), 0.8), 1.0, 30.0) * 100)
+        if t + d > end_cs:
+            break
+        chunks.append((t, t + d))
+        t += d + int(rng.integers(0, 50))
+    return chunks or [(start_cs, end_cs)]
+
+
+def make_yodas2_mirror(rng):
+    """YODAS2_SUBSHARDS sub-shards of YODAS2_ENTRIES entries: 10-60 s of
+    16-bit 24 kHz WAV, but entry 1 of each sub-shard is a 4 s FLAC and entry
+    2 a 16 kHz WAV; entry 0 of sub-shard 0 is 75 s long and starts with a
+    65 s chunk (split by the engine's 60 s cap) and a degenerate one."""
+    from torch_yodas2_mirror import Entry
+
+    subshards = []
+    for s in range(YODAS2_SUBSHARDS):
+        entries = []
+        for a in range(YODAS2_ENTRIES):
+            container, sr = ("flac", SR) if a == 1 else ("wav", 16_000 if a == 2 else SR)
+            seconds = 75.0 if (s, a) == (0, 0) else 4.0 if a == 1 else float(rng.uniform(10, 60))
+            if (s, a) == (0, 0):
+                chunks = [(0, 6500), (6500, 6500)] + lognormal_chunks(rng, seconds, 6520)
+            else:
+                chunks = lognormal_chunks(rng, seconds)
+            n = int(seconds * sr)
+            tt = np.arange(n) / sr
+            wave = 0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * tt) + 0.1 * rng.standard_normal(n)
+            pcm = (np.clip(wave, -1, 1) * 32767).astype(np.int16)
+            entries.append(Entry(f"yt{s}-{a:02d}", pcm, sr, container, chunks))
+        subshards.append(entries)
+    return subshards
+
+
+class ThreadFlagSpy:
+    """Records both TF32 flags, and whether the caller is the main thread,
+    at every call of ``torch.nn.functional.conv1d`` (the resample conv and
+    the model's convs) and of ``model.transformer_apply``."""
+
+    def __init__(self, torch):
+        from tokenize_audio_tpu_torch.mimi import model
+
+        self.torch, self.model = torch, model
+        self.calls = []  # (what, main thread?, cudnn.allow_tf32, cuda.matmul.allow_tf32)
+        self.orig_conv, self.orig_tfm = torch.nn.functional.conv1d, model.transformer_apply
+
+    def _wrap(self, what, fn):
+        torch = self.torch
+
+        def spy(*args, **kwargs):
+            self.calls.append((what, threading.current_thread() is threading.main_thread(),
+                               torch.backends.cudnn.allow_tf32,
+                               torch.backends.cuda.matmul.allow_tf32))
+            return fn(*args, **kwargs)
+
+        return spy
+
+    def __enter__(self):
+        self.torch.nn.functional.conv1d = self._wrap("conv1d", self.orig_conv)
+        self.model.transformer_apply = self._wrap("transformer_apply", self.orig_tfm)
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.nn.functional.conv1d = self.orig_conv
+        self.model.transformer_apply = self.orig_tfm
+
+    def summary(self):
+        out = {}
+        for what, main, cudnn, matmul in self.calls:
+            key = f"{what}_{'main' if main else 'other'}_threads"
+            row = out.setdefault(key, {"calls": 0, "tf32_on": 0})
+            row["calls"] += 1
+            row["tf32_on"] += int(cudnn or matmul)
+        return out
+
+
+def run_yodas2_cli(torch, root, work, tag, captured, profiled=False):
+    """One run of the port's YODAS2 CLI on the mirror at ``root``, into a
+    fresh hub, work and progress directory under ``work/tag``; returns the
+    report, the hub directory and the wall seconds from the end of the
+    engine's construction (its stats are reset there) to the report, and
+    with ``profiled`` a torch.profiler device breakdown of that window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tokenize_audio_tpu_torch.datasets import yodas2
+    from tokenize_audio_tpu_torch.engine import EngineStats
+
+    orig = yodas2.engine_from_args
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
+
+    def capture(*args, **kwargs):
+        engine = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        engine.stats = EngineStats()
+        captured[tag] = engine
+        if prof is not None:
+            prof.start()
+        return engine
+
+    hub = str(Path(work) / tag / "hub")
+    yodas2.engine_from_args = capture
+    try:
+        report = yodas2.main([
+            "--shard-id", YODAS2_SHARD, "--source", f"dir:{root}", "--hub", hub,
+            "--progress-dir", str(Path(work) / tag / "progress"),
+            "--work-dir", str(Path(work) / tag / "work"),
+        ])
+        torch.cuda.synchronize()
+        wall = captured[tag].stats.wall_seconds
+    finally:
+        yodas2.engine_from_args = orig
+        if prof is not None and tag in captured:
+            prof.stop()
+    check(report["processed"] == YODAS2_SUBSHARDS and report["failed"] == 0
+          and report["uploaded"] == YODAS2_SUBSHARDS, f"yodas2 {tag} report {report}")
+    return report, hub, wall, (profile_summary(prof, wall) if prof is not None else None)
+
+
+def resample_tf32_check(torch):
+    """Resamples on the card against the CPU, with both TF32 flags switched
+    on by the caller: as ``resample`` / ``resample_many`` run them (the conv
+    under ieee_fp32), and with ieee_fp32 taken out of the conv (as it ran
+    before it was put there). 16 -> 24 kHz on one 20 s row (the processor's
+    ``prepare_audio``) and on 64 rows of 1-20 s (``resample_many``), and
+    48 -> 24 kHz on one row; max abs differences, the IEEE ones <= 1e-6."""
+    import contextlib
+
+    from tokenize_audio_tpu_torch.core import audio
+
+    rng = np.random.default_rng(SEED + 5)
+    cases = {
+        "16k_to_24k_1x20s": (16_000, [rng.standard_normal(20 * 16_000)]),
+        "16k_to_24k_64_rows": (16_000, [rng.standard_normal(int(rng.uniform(1, 20) * 16_000))
+                                        for _ in range(64)]),
+        "48k_to_24k_1x20s": (48_000, [rng.standard_normal(20 * 48_000)]),
+    }
+    out = {}
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    orig = audio.ieee_fp32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for name, (sr, rows) in cases.items():
+            rows = [(0.3 * r).astype(np.float32) for r in rows]
+            want = audio.resample_many(rows, sr, SR, device="cpu")
+            row = {}
+            for mode, ctx in (("ieee", orig), ("tf32_conv", contextlib.nullcontext)):
+                audio.ieee_fp32 = ctx
+                got = audio.resample_many(rows, sr, SR)
+                row[f"max_abs_diff_{mode}"] = max(float(np.abs(g - w).max())
+                                                  for g, w in zip(got, want))
+            audio.ieee_fp32 = orig
+            out[name] = row
+    finally:
+        audio.ieee_fp32 = orig
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    worst = max(r["max_abs_diff_ieee"] for r in out.values())
+    check(worst <= 1e-6, f"resample on the card vs CPU: max abs diff {worst} > 1e-6")
+    return out
+
+
+def phase_yodas2(torch, tmp):
+    """The port's YODAS2 processor through ``datasets.yodas2.main``: a cold
+    run, a checked run (kernel launches, TF32 flags in every thread, hub
+    JSON, codes against a direct encode_batch of the same chunks) and a
+    profiled run. Returns the kernels' launch counts of the checked run."""
+    if str(TESTS_DIR) not in sys.path:
+        sys.path.insert(0, str(TESTS_DIR))
+    from torch_yodas2_mirror import write_mirror
+    from tokenize_audio_tpu_torch.datasets.yodas2 import parse_chunk_id, slice_chunks
+    from tokenize_audio_tpu_torch.ops.cuda import rvq, seanet
+
+    t0 = time.perf_counter()
+    subshards = make_yodas2_mirror(np.random.default_rng(SEED + 6))
+    root = write_mirror(str(Path(tmp) / "mirror"), YODAS2_SHARD, subshards)
+    mirror_seconds = time.perf_counter() - t0
+    entries = [e for sub in subshards for e in sub]
+    captured = {}
+
+    _, _, cold_wall, _ = run_yodas2_cli(torch, root, tmp, "cold", captured)
+    cold_audio = captured.pop("cold").stats.audio_seconds
+
+    with ThreadFlagSpy(torch) as spy:
+        rvq.rvq_quantize.launches = 0
+        seanet.resblock_elu.launches = 0
+        report, hub, wall, _ = run_yodas2_cli(torch, root, tmp, "checked", captured)
+        launches = {"rvq_quantize": rvq.rvq_quantize.launches,
+                    "resblock_elu": seanet.resblock_elu.launches}
+    engine = captured["checked"]
+    stats, stages = engine.stats.as_dict(), dict(engine.stats.stage_seconds)
+    check(all(n > 0 for n in launches.values()), f"kernel launches in the yodas2 run: {launches}")
+    flags = spy.summary()
+    check(all(row["tf32_on"] == 0 for row in flags.values()),
+          f"TF32 flags on during the yodas2 run: {flags}")
+    check(flags.get("conv1d_other_threads", {}).get("calls", 0) > 0,
+          f"no conv1d (resample) in a prefetch thread: {flags}")
+    check(flags.get("transformer_apply_main_threads", {}).get("calls", 0) > 0,
+          f"no transformer_apply in the yodas2 run: {flags}")
+
+    # the hub JSON: every non-degenerate chunk has (32, ceil(len / 1920)) codes < 2048
+    got = {}
+    for s in range(YODAS2_SUBSHARDS):
+        path = Path(hub) / "data" / YODAS2_SHARD / f"{s:08d}.json"
+        check(path.is_file(), f"hub lacks {path}")
+        for e in json.loads(path.read_text()):
+            for cid, c in e["codes"].items():
+                got[cid] = np.asarray(c)
+    want_ids, segments = [], []
+    for e in entries:
+        audio24 = engine.prepare_audio(e.pcm, e.sample_rate)
+        ids, segs = slice_chunks(audio24, e.text, SR)
+        check(sorted(ids) == sorted(c for c in e.text if parse_chunk_id(c) is not None),
+              f"{e.audio_id}: a chunk outside the audio")
+        want_ids += ids
+        segments += segs
+    check(sorted(got) == sorted(want_ids), f"hub chunks {len(got)} vs {len(want_ids)} expected")
+    for cid, seg in zip(want_ids, segments):
+        c = got[cid]
+        check(c.shape == (32, -(-len(seg) // SPF)), f"{cid}: codes {c.shape} for {len(seg)} samples")
+        check(c.min() >= 0 and c.max() < 2048, f"{cid}: code out of range")
+    check(max(len(s) for s in segments) > 60 * SR, "no chunk over the 60 s cap")
+    check(sum(parse_chunk_id(c) is None for e in entries for c in e.text) > 0,
+          "no degenerate chunk")
+
+    # the same chunks through encode_batch directly, in this process, on this card
+    chunk_seconds = sum(len(s) for s in segments) / SR
+    engine.encode_batch(segments, sr=SR, defer=True)()  # its batch shapes, first pass
+    torch.cuda.synchronize()
+    r0, s0 = rvq.rvq_quantize.launches, seanet.resblock_elu.launches
+    t0 = time.perf_counter()
+    direct = engine.encode_batch(segments, sr=SR, defer=True)()
+    torch.cuda.synchronize()
+    direct_wall = time.perf_counter() - t0
+    direct_launches = {"rvq_quantize": rvq.rvq_quantize.launches - r0,
+                       "resblock_elu": seanet.resblock_elu.launches - s0}
+    frames = np.concatenate([(got[cid] == d).all(axis=0) for cid, d in zip(want_ids, direct)])
+    codes = np.concatenate([(got[cid] == d).reshape(-1) for cid, d in zip(want_ids, direct)])
+    frame_match, code_match = float(frames.mean()), float(codes.mean())
+    check(frame_match >= 0.999, f"processor vs direct encode_batch frame match {frame_match}")
+    del engine
+    captured.clear()
+
+    *_, profile = run_yodas2_cli(torch, root, tmp, "profiled", captured, profiled=True)
+    captured.clear()
+    resample = resample_tf32_check(torch)
+    emit({
+        "phase": "yodas2",
+        "report": report,
+        "subshards": YODAS2_SUBSHARDS,
+        "entries": len(entries),
+        "chunks": len(want_ids),
+        "entry_audio_seconds": sum(len(e.pcm) / e.sample_rate for e in entries),
+        "audio_seconds": chunk_seconds,
+        "mirror_build_seconds": mirror_seconds,
+        "wall_seconds": wall,
+        "realtime_factor": chunk_seconds / wall,
+        "cold_wall_seconds": cold_wall,
+        "cold_realtime_factor": cold_audio / cold_wall,
+        "direct_encode_batch_wall_seconds": direct_wall,
+        "direct_encode_batch_realtime_factor": chunk_seconds / direct_wall,
+        "direct_encode_batch_launches": direct_launches,
+        "launches": launches,
+        "tf32_calls": flags,
+        "vs_direct_frame_match": frame_match,
+        "vs_direct_frames_equal": int(frames.sum()),
+        "vs_direct_frames": int(frames.size),
+        "vs_direct_code_match": code_match,
+        "stage_seconds": {k: stages.get(k, 0.0) for k in YODAS2_STAGES},
+        "engine_stats": stats,
+        "resample_vs_cpu_tf32_on": resample,
+    })
+    emit({"phase": "yodas2_profile", **profile})
+    return launches
 
 
 def start_extra_build(name: str, src: str, entry: str, argtypes):
@@ -747,8 +1060,11 @@ def main(argv=None) -> int:
               "ptxas": ptxas})
         records = phase_kernels(torch, peak_flops, peak_bw, rvq_extras)
         launches, shapes, rvq_shapes = phase_main(torch)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_yodas2_") as tmp:
+            yodas2_launches = phase_yodas2(torch, tmp)
         for r in records:
             r["launches"] = launches[r["name"]]
+            r["yodas2_launches"] = yodas2_launches[r["name"]]
         main_path = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
         next(r for r in records if r["name"] == "resblock_elu")["main_path"] = main_path
         rvq_main = phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, rvq_extras)

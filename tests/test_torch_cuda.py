@@ -9,13 +9,18 @@ which skips it where no CUDA device is present; run on a GPU machine with
 use and a GPU machine need not have)."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
+from torch_yodas2_mirror import Entry, noise_pcm, write_mirror
 from tokenize_audio_tpu_torch.config import EngineConfig, ieee_fp32
+from tokenize_audio_tpu_torch.core.audio import resample, resample_many
+from tokenize_audio_tpu_torch.datasets import yodas2
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+from tokenize_audio_tpu_torch.hub import LocalHub
 from tokenize_audio_tpu_torch.mimi import MimiConfig, encode, params_to_torch, random_params
 from tokenize_audio_tpu_torch.ops.cuda import rvq, seanet
 
@@ -238,3 +243,55 @@ def test_engine_under_inference_mode_on_card(cuda):
     assert rvq.rvq_quantize.launches > r0
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_resample_and_yodas2_on_card_equal_cpu(cuda, tmp_path, monkeypatch):
+    """With TF32 switched on by the caller, a 16 -> 24 kHz resample on the
+    card matches the CPU to 1e-6 (the conv runs in IEEE fp32 wherever it is
+    called from), and the tiny-config YODAS2 processor on the card, whose
+    decode-prefetch threads resample the 16 kHz entries, gives the CPU run's
+    codes."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    rng = np.random.default_rng(9)
+    audio = (rng.standard_normal(3 * 16_000) * 0.3).astype(np.float32)
+    got = resample(audio, 16_000, 24_000)
+    assert got.device.type == "cuda"
+    want = resample(audio, 16_000, 24_000, device="cpu")
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    rows = [audio, (audio[:7777] * 32767).astype(np.int16)]
+    for g, w in zip(resample_many(rows, 16_000, 24_000),
+                    resample_many(rows, 16_000, 24_000, device="cpu")):
+        assert float(np.abs(g - w).max()) <= 1e-6
+
+    chunks = [(0, 100), (100, 100), (50, 300)]  # a degenerate one, one over the cap
+    root = write_mirror(str(tmp_path / "mirror"), "en000", [
+        [Entry(f"vid-{s}-{a}", noise_pcm(rng, int(sr * sec)), sr, kind, chunks)
+         for a, (kind, sr, sec) in enumerate(
+             [("wav", 24_000, 3.0), ("flac", 24_000, 2.5), ("wav", 16_000, 3.5)])]
+        for s in range(2)
+    ])
+    params = random_params(TINY, seed=3)
+    ecfg = EngineConfig(batch_size=4, min_bucket_seconds=0.5, max_chunk_seconds=2.0)
+    codes = {}
+    for device in ("cuda", "cpu"):
+        engine = MimiEncoderEngine(params, TINY, ecfg, num_codebooks=12, device=device)
+        hub = LocalHub(str(tmp_path / device / "hub"))
+        r0, s0 = rvq.rvq_quantize.launches, seanet.resblock_elu.launches
+        report = yodas2.Yodas2ShardProcessor(
+            "en000", yodas2.LocalSource(root), hub, engine, str(tmp_path / device / "work"),
+            str(tmp_path / device / "prog"), max_consecutive_missing=2,
+        ).process()
+        assert report["processed"] == 2 and report["uploaded"] == 2 and report["failed"] == 0
+        if device == "cuda":
+            assert rvq.rvq_quantize.launches > r0 and seanet.resblock_elu.launches > s0
+        codes[device] = {}
+        for path in hub.list_files("data/"):
+            with open(hub._abs(path)) as f:
+                for e in json.load(f):
+                    for cid, c in e["codes"].items():
+                        codes[device][cid] = np.array(c)
+    assert sorted(codes["cuda"]) == sorted(codes["cpu"]) and len(codes["cpu"]) == 12
+    same = np.concatenate([(codes["cuda"][k] == codes["cpu"][k]).reshape(-1)
+                           for k in codes["cpu"]])
+    assert same.mean() >= 0.99, same.mean()

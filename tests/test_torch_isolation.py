@@ -35,7 +35,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 12  # every module of the slice was imported
+    assert int(n_modules) >= 33  # every module of the slices so far was imported
     assert bad == "[]", f"the port imported {bad}"
 
 

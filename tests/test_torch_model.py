@@ -156,3 +156,105 @@ def test_unported_modes_raise(oracle):
     before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     encode(params, cfg, audio)
     assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == before
+
+
+def tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("before", [(True, True), (True, False), (False, True)])
+def test_ieee_fp32_is_safe_across_threads(monkeypatch, before):
+    """Two threads enter and leave ieee_fp32() in overlapping order (A in,
+    B in, A out, B out): both TF32 flags stay False while either is inside,
+    and come back to their old values only after the last one leaves."""
+    import threading
+
+    from tokenize_audio_tpu_torch.config import ieee_fp32
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", before[0])
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", before[1])
+    steps = {name: threading.Event() for name in ("a_in", "b_in", "a_out", "b_out")}
+    seen = []
+
+    def thread_a():
+        with ieee_fp32():
+            seen.append(("a inside", tf32_flags()))
+            steps["a_in"].set()
+            steps["b_in"].wait(10)
+        steps["a_out"].set()
+
+    def thread_b():
+        steps["a_in"].wait(10)
+        with ieee_fp32():
+            seen.append(("b inside", tf32_flags()))
+            steps["b_in"].set()
+            steps["a_out"].wait(10)
+            seen.append(("b inside after a left", tf32_flags()))
+        steps["b_out"].set()
+
+    threads = [threading.Thread(target=f) for f in (thread_a, thread_b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=20)
+    assert not any(t.is_alive() for t in threads)
+    assert [s for s, _ in seen] == ["a inside", "b inside", "b inside after a left"]
+    assert all(flags == (False, False) for _, flags in seen), seen
+    assert tf32_flags() == before
+
+
+def test_ieee_fp32_stress_many_threads(monkeypatch):
+    """Many threads entering and leaving at random never see a flag on, and
+    the flags are restored at the end."""
+    import sys
+    import threading
+
+    from tokenize_audio_tpu_torch.config import ieee_fp32
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    bad = []
+
+    def work():
+        for _ in range(300):
+            with ieee_fp32():
+                if tf32_flags() != (False, False):
+                    bad.append(tf32_flags())
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+    assert tf32_flags() == (True, True)
+
+
+@pytest.mark.parametrize("rates", [(16_000, 24_000), (48_000, 24_000)])
+def test_resample_conv_runs_in_ieee_fp32(monkeypatch, rates):
+    """The polyphase conv of resample / resample_many sees both TF32 flags
+    False, whatever the caller left them at (the conv is cuDNN's on a card)."""
+    import torch.nn.functional as F
+
+    from tokenize_audio_tpu_torch.core.audio import resample_many
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    real, seen = F.conv1d, []
+
+    def spy(*args, **kwargs):
+        seen.append(tf32_flags())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(F, "conv1d", spy)
+    audio = np.random.default_rng(0).standard_normal(5000).astype(np.float32)
+    resample(audio, *rates, device="cpu")
+    resample_many([audio, audio[:777]], *rates, device="cpu")  # two length groups
+    assert len(seen) == 3 and all(flags == (False, False) for flags in seen), seen
+    assert tf32_flags() == (True, True)

@@ -12,6 +12,11 @@ core      : audio DSP (resample/frame/normalize, length buckets)
 mimi      : the PyTorch Mimi encoder, weight conversion from HF checkpoints
 ops       : hand-written CUDA kernels and their plain PyTorch versions
 engine    : length-bucketed batch encoding engine with throughput metrics
+io        : WAV / native FLAC / libmpg123 decode, fast code JSON, prefetch
+hub       : artifact stores (local directory, HuggingFace Hub)
+runner    : crash-safe progress ledger and the shard work loop
+datasets  : corpus processors (YODAS2)
+cli       : the engine flags shared by the processors' command lines
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

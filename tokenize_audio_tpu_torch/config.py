@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Mapping, Optional
 
 import torch
@@ -51,21 +52,41 @@ def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
     return dev
 
 
+_fp32_lock = threading.Lock()
+_fp32_holders = 0
+_fp32_saved: tuple = ()
+
+
 @contextlib.contextmanager
 def ieee_fp32():
     """IEEE fp32 for cuDNN convolutions and cuBLAS matmuls (the counterpart
     of JAX ``Precision.HIGHEST``): cuDNN convs default to TF32, which keeps
-    about three decimal digits and breaks code parity. Both flags are
-    restored on exit rather than flipped process-wide."""
-    cudnn_prev = torch.backends.cudnn.allow_tf32
-    matmul_prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    about three decimal digits and breaks code parity.
+
+    The two TF32 flags are process-wide, and decode-prefetch threads
+    resample while the main thread encodes, so entries are counted: the
+    first holder saves both flags and clears them, and only the last holder
+    to leave restores them. Both stay False while any thread is inside."""
+    global _fp32_holders, _fp32_saved
+    with _fp32_lock:
+        if _fp32_holders == 0:
+            _fp32_saved = (
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+            )
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _fp32_holders += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn_prev
-        torch.backends.cuda.matmul.allow_tf32 = matmul_prev
+        with _fp32_lock:
+            _fp32_holders -= 1
+            if _fp32_holders == 0:
+                (
+                    torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32,
+                ) = _fp32_saved
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from tokenize_audio_tpu_torch.config import (
     MIMI_SAMPLE_RATE,
     SAMPLES_PER_FRAME,
+    ieee_fp32,
     resolve_device,
 )
 
@@ -119,7 +120,10 @@ def _resample_plan(up: int, down: int) -> Tuple[np.ndarray, int]:
 
 
 def _resample_batch(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
-    """upfirdn(h, x, up, down) for a float32 (B, T) batch via polyphase conv."""
+    """upfirdn(h, x, up, down) for a float32 (B, T) batch via polyphase conv,
+    in IEEE fp32 (the JAX resampler's ``Precision.HIGHEST``): with TF32
+    allowed, cuDNN may pick a TF32 algorithm for it on the card, whichever
+    thread calls it."""
     ker, n_pre_remove = _resample_plan(up, down)
     t = ker.shape[-1] - down
     n_in = x.shape[-1]
@@ -128,7 +132,8 @@ def _resample_batch(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
     pad_right = t + down * (n_blocks + 1) - n_in
     lhs = F.pad(x, (t, pad_right))[:, None, :]  # (B, 1, L)
     rhs = torch.from_numpy(ker)[:, None, :].to(x.device)  # (up, 1, t+down)
-    y = F.conv1d(lhs, rhs, stride=down)  # (B, up, >=n_blocks)
+    with ieee_fp32():
+        y = F.conv1d(lhs, rhs, stride=down)  # (B, up, >=n_blocks)
     y = y[:, :, :n_blocks]
     y = y.transpose(1, 2).reshape(x.shape[0], n_blocks * up)
     return y[:, n_pre_remove : n_pre_remove + n_out]

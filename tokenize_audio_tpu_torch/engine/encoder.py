@@ -20,8 +20,9 @@ Differences from the reference:
     batch overlaps the device work of the previous ones.
 
 Not ported yet: a device mesh / multi-GPU, ``long_audio_policy="stream"``,
-the "ready"/"threaded" drains and autotuning (each raises
-NotImplementedError when asked for), and transient-fault retry.
+the "ready"/"threaded" drains, autotuning and the bfloat16 / TF32 modes
+(each raises NotImplementedError when asked for), and transient-fault
+retry.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from tokenize_audio_tpu_torch.core.audio import (
 )
 from tokenize_audio_tpu_torch.engine.metrics import EngineStats
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
+from tokenize_audio_tpu_torch.mimi.model import _check_modes
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
 from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
 from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
@@ -111,6 +113,8 @@ class MimiEncoderEngine:
             raise NotImplementedError("the port's engine runs on one device (no mesh)")
         self.pipeline_depth = pipeline_depth
         self.cfg = cfg or MimiConfig()
+        # refuse unported precision modes now, not at the first encode
+        _check_modes(self.cfg)
         self.engine_cfg = engine_cfg or EngineConfig()
         self.num_codebooks = num_codebooks or self.engine_cfg.num_codebooks
         self.masked = masked

@@ -37,15 +37,28 @@ the run (non-zero exit, no final result line) if its check fails:
                 profiled run's device breakdown, and a 16 -> 24 kHz resample
                 on the card against the CPU with TF32 switched on by the
                 caller;
-  6. replay   — the resblock kernel at each recorded shape: agreement with
-                its plain version, CUDA-event times and the FP32 bound, summed
-                per C as count x ms (the ``main_path`` entry of its record);
-  7. rvq_replay — the RVQ kernel at each recorded (N, K), on the model's
-                codebooks: code agreement with its plain version (first
-                divergences must be near-ties), CUDA-event times and the FP32
-                bound, summed as count x ms (the ``main_path`` entry of its
-                record);
-  8. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
+  6. bench    — the port's benchmark module (``tokenize_audio_tpu_torch.
+                benchmark``) at full width under its bench config (192 s
+                samples budget per batch, max batch 128, 2 s minimum bucket,
+                8 codebooks): the engine bench (256 utterances, best of 5
+                passes, fused 16 kHz stage) with both kernels' launches and
+                shapes recorded in its first measured pass, the TF32 flags
+                at every transformer and (fused) resample conv, peak memory
+                and a profiled pass; fused 16 kHz codes against
+                resample-then-encode on the card and the card against the
+                CPU engine at 16 and 48 kHz; then the pipeline, compare, mp3
+                (where libmp3lame and libmpg123 load), soak and CLI modes;
+  7. replay   — the resblock kernel at each shape recorded on the main path,
+                then at each recorded in the bench: agreement with its plain
+                version, CUDA-event times and the FP32 bound, summed per C
+                as count x ms (the ``main_path`` and ``bench_path`` entries
+                of its record);
+  8. rvq_replay — the RVQ kernel at each recorded (N, K) of both paths, on
+                the model's codebooks: code agreement with its plain version
+                (first divergences must be near-ties), CUDA-event times and
+                the FP32 bound, summed as count x ms (the ``main_path`` and
+                ``bench_path`` entries of its record);
+  9. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
 Options, for comparing kernels on one card in one run, each another
@@ -70,8 +83,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -356,14 +371,55 @@ def make_subshard(rng):
     return audios
 
 
+class KernelSpy:
+    """Replaces both kernel wrappers by spies that record, while ``active``,
+    the (B, C, T) of each resblock launch and the (N, K) of each RVQ launch
+    (which must pass the packed codebooks). While a spy is installed the
+    wrapper's launch count (kept on its module-global name) is the spy's."""
+
+    def __init__(self, active: bool = True):
+        from tokenize_audio_tpu_torch.ops.cuda import rvq, seanet
+
+        self.rvq, self.seanet = rvq, seanet
+        self.active = active
+        self.shapes, self.rvq_shapes = collections.Counter(), collections.Counter()
+
+    def __enter__(self):
+        self.orig = orig_rb, orig_rvq = self.seanet.resblock_elu, self.rvq.rvq_quantize
+
+        def rb_spy(x, *args, **kwargs):
+            if self.active:
+                self.shapes[tuple(x.shape)] += 1
+            return orig_rb(x, *args, **kwargs)
+
+        def rvq_spy(x, embeds, *args, **kwargs):
+            check(kwargs.get("packed") is not None, "an RVQ launch without the packed codebooks")
+            if self.active:
+                self.rvq_shapes[(x.shape[0], embeds.shape[0])] += 1
+            return orig_rvq(x, embeds, *args, **kwargs)
+
+        self.seanet.resblock_elu, self.rvq.rvq_quantize = rb_spy, rvq_spy
+        self.reset()
+        return self
+
+    def reset(self):
+        self.rvq.rvq_quantize.launches = 0
+        self.seanet.resblock_elu.launches = 0
+
+    def launches(self):
+        return {"rvq_quantize": self.rvq.rvq_quantize.launches,
+                "resblock_elu": self.seanet.resblock_elu.launches}
+
+    def __exit__(self, *exc):
+        self.seanet.resblock_elu, self.rvq.rvq_quantize = self.orig
+
+
 def phase_main(torch):
     from tokenize_audio_tpu_torch.engine import EngineStats, MimiEncoderEngine
     from tokenize_audio_tpu_torch.mimi import MimiConfig, model, params_to_torch, random_params
-    from tokenize_audio_tpu_torch.ops.cuda import rvq, seanet
 
     cfg = MimiConfig()
     params = params_to_torch(random_params(cfg, seed=SEED))  # on the card
-    shapes, rvq_shapes = collections.Counter(), collections.Counter()
     rng = np.random.default_rng(SEED + 1)
     audios = make_subshard(rng)
     audio_seconds = sum(len(a) for a in audios) / SR
@@ -377,45 +433,23 @@ def phase_main(torch):
         seen["cuda.matmul.allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
         return orig_tfm(*args, **kwargs)
 
-    # the resblock shapes of the main path; while the spy is installed the
-    # wrapper's count (kept on its module-global name) is the spy's
-    orig_rb = seanet.resblock_elu
-
-    def rb_spy(x, *args, **kwargs):
-        shapes[tuple(x.shape)] += 1
-        return orig_rb(x, *args, **kwargs)
-
-    # the RVQ kernel's (N, K), the same way
-    orig_rvq = rvq.rvq_quantize
-
-    def rvq_spy(x, embeds, *args, **kwargs):
-        check(kwargs.get("packed") is not None, "an RVQ launch without the packed codebooks")
-        rvq_shapes[(x.shape[0], embeds.shape[0])] += 1
-        return orig_rvq(x, embeds, *args, **kwargs)
-
     model.transformer_apply = spy
     try:
         engine = MimiEncoderEngine(params, cfg, num_codebooks=32)
         engine.encode_batch(audios[:4], sr=SR)  # first-use set-up, not counted
         torch.cuda.synchronize()
         engine.stats = EngineStats()
-        seanet.resblock_elu = rb_spy
-        rvq.rvq_quantize = rvq_spy
-        rvq.rvq_quantize.launches = 0
-        seanet.resblock_elu.launches = 0
-        t0 = time.perf_counter()
-        finish = engine.encode_batch(audios, sr=SR, defer=True)
-        codes = finish()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {
-            "rvq_quantize": rvq.rvq_quantize.launches,
-            "resblock_elu": seanet.resblock_elu.launches,
-        }
+        # the kernels' shapes on the main path
+        with KernelSpy() as kernels:
+            t0 = time.perf_counter()
+            finish = engine.encode_batch(audios, sr=SR, defer=True)
+            codes = finish()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launches()
+        shapes, rvq_shapes = kernels.shapes, kernels.rvq_shapes
     finally:
         model.transformer_apply = orig_tfm
-        seanet.resblock_elu = orig_rb
-        rvq.rvq_quantize = orig_rvq
     check(seen and not any(seen.values()), f"TF32 flags inside encode: {seen}")
     check(all(n > 0 for n in launches.values()), f"kernel launches on the main path: {launches}")
     check(sum(shapes.values()) == launches["resblock_elu"],
@@ -589,34 +623,53 @@ def make_yodas2_mirror(rng):
 class ThreadFlagSpy:
     """Records both TF32 flags, and whether the caller is the main thread,
     at every call of ``torch.nn.functional.conv1d`` (the resample conv and
-    the model's convs) and of ``model.transformer_apply``."""
+    the model's convs) and of ``model.transformer_apply``; a conv1d called
+    inside ``core.audio._resample_batch`` (``resample``, ``resample_many``
+    and the fused resample in ``encode``) is also recorded as
+    ``resample_conv1d``."""
 
     def __init__(self, torch):
+        from tokenize_audio_tpu_torch.core import audio
         from tokenize_audio_tpu_torch.mimi import model
 
-        self.torch, self.model = torch, model
+        self.torch, self.model, self.audio = torch, model, audio
         self.calls = []  # (what, main thread?, cudnn.allow_tf32, cuda.matmul.allow_tf32)
         self.orig_conv, self.orig_tfm = torch.nn.functional.conv1d, model.transformer_apply
+        self.orig_resample = audio._resample_batch
+        self.local = threading.local()
+
+    def _record(self, what):
+        torch = self.torch
+        self.calls.append((what, threading.current_thread() is threading.main_thread(),
+                           torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32))
 
     def _wrap(self, what, fn):
-        torch = self.torch
-
         def spy(*args, **kwargs):
-            self.calls.append((what, threading.current_thread() is threading.main_thread(),
-                               torch.backends.cudnn.allow_tf32,
-                               torch.backends.cuda.matmul.allow_tf32))
+            self._record(what)
+            if what == "conv1d" and getattr(self.local, "resampling", False):
+                self._record("resample_conv1d")
             return fn(*args, **kwargs)
 
         return spy
 
+    def _resample(self, *args, **kwargs):
+        self.local.resampling = True
+        try:
+            return self.orig_resample(*args, **kwargs)
+        finally:
+            self.local.resampling = False
+
     def __enter__(self):
         self.torch.nn.functional.conv1d = self._wrap("conv1d", self.orig_conv)
         self.model.transformer_apply = self._wrap("transformer_apply", self.orig_tfm)
+        self.audio._resample_batch = self._resample
         return self
 
     def __exit__(self, *exc):
         self.torch.nn.functional.conv1d = self.orig_conv
         self.model.transformer_apply = self.orig_tfm
+        self.audio._resample_batch = self.orig_resample
 
     def summary(self):
         out = {}
@@ -826,6 +879,188 @@ def phase_yodas2(torch, tmp):
     return launches
 
 
+BENCH_UTTS, BENCH_PASSES = 256, 5  # run_engine_bench's defaults
+BENCH_FUSED_SAMPLE = 64  # utterances of the bench workload, fused vs unfused
+BENCH_TIE_SECONDS = (5.5, 6.5, 8.0)  # card vs CPU, at 16 and at 48 kHz
+BENCH_MIRROR = dict(subshards=2, audios=6, seconds=90.0)  # pipeline and compare
+BENCH_MP3 = dict(subshards=1, audios=2, seconds=10.0)
+BENCH_SOAK = dict(minutes=0.5, subshards=1, audios=2, seconds=30.0)
+BENCH_CLI = ["--pipeline", "--subshards", "1", "--audios", "2", "--seconds", "10"]
+MP3_LIBRARIES = ("libmp3lame.so.0", "libmpg123.so.0")
+
+
+def frame_match(got, want, what) -> float:
+    """Share of equal frames (all books of a frame equal) between two lists
+    of per-utterance codes of the same shapes."""
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, f"{what}: codes {g.shape} vs {w.shape}")
+    frames = np.concatenate([(g == w).all(axis=0) for g, w in zip(got, want)])
+    return int(frames.sum()) / frames.size
+
+
+def check_result_line(res, smi, what) -> None:
+    """A benchmark mode's result: exactly metric, value, unit and detail, a
+    positive value, the card's nvidia-smi line as its device, no
+    ``vs_baseline``."""
+    check(set(res) == {"metric", "value", "unit", "detail"} and res["value"] > 0
+          and res["detail"]["device"] == smi and "vs_baseline" not in json.dumps(res),
+          f"{what} result {res}")
+
+
+def hub_jsons(work_root) -> list:
+    return sorted(p.name for p in (Path(work_root) / "hub_m" / "data" / "en000").glob("*.json"))
+
+
+def phase_bench(torch, tmp, smi):
+    """The port's benchmark module (``tokenize_audio_tpu_torch.benchmark``)
+    on the card at full kyutai/mimi width (random weights, seed 0) under its
+    bench config: the engine bench (256 utterances, best of 5 passes, the
+    fused 16 kHz stage) with both kernels spied on in its first measured
+    pass and the TF32 flags recorded throughout; a profiled pass; the fused
+    16 kHz codes against resample-then-encode on the card and, at 16 and
+    48 kHz, against the CPU engine; then the pipeline, compare, mp3 (where
+    both libraries load), soak and CLI modes. Returns the spied pass's
+    launch counts and shapes."""
+    from tokenize_audio_tpu_torch import benchmark
+    from tokenize_audio_tpu_torch.core.audio import resample_many
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+    from tokenize_audio_tpu_torch.mimi import random_params
+
+    t_phase = time.perf_counter()
+    # --- engine mode: the engine is captured at construction, its batches
+    # counted per stage; the kernels are spied on in measured pass 1 only
+    stage, batches, engines, launches = ["start"], collections.Counter(), [], {}
+    real_engine = benchmark.MimiEncoderEngine
+
+    def capture(*args, **kwargs):
+        engine = real_engine(*args, **kwargs)
+        real_dispatch = engine._dispatch
+
+        def dispatch(*a, **kw):
+            batches[stage[0]] += 1
+            return real_dispatch(*a, **kw)
+
+        engine._dispatch = dispatch
+        engines.append(engine)
+        return engine
+
+    def progress(name):
+        if stage[0] == "measured_pass_1":  # the spied pass has ended
+            kernels.active = False
+            launches.update(kernels.launches())
+        stage[0] = name
+        if name == "measured_pass_1":
+            kernels.reset()
+            kernels.active = True
+
+    torch.cuda.reset_peak_memory_stats()
+    benchmark.MimiEncoderEngine = capture
+    try:
+        with KernelSpy(active=False) as kernels, ThreadFlagSpy(torch) as flags:
+            t0 = time.perf_counter()
+            result = benchmark.run_engine_bench(n_utts=BENCH_UTTS, passes=BENCH_PASSES,
+                                                progress=progress)
+            torch.cuda.synchronize()
+            engine_phase_seconds = time.perf_counter() - t0
+    finally:
+        benchmark.MimiEncoderEngine = real_engine
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(n > 0 for n in launches.values()) and len(launches) == 2,
+          f"kernel launches in the bench's measured pass 1: {launches}")
+    check(sum(kernels.shapes.values()) == launches["resblock_elu"]
+          and sum(kernels.rvq_shapes.values()) == launches["rvq_quantize"],
+          f"bench shapes vs launches {launches}")
+    tf32 = flags.summary()
+    check(all(row["tf32_on"] == 0 for row in tf32.values()), f"TF32 flags on in the bench: {tf32}")
+    for key in ("transformer_apply_main_threads", "resample_conv1d_main_threads"):
+        check(tf32.get(key, {}).get("calls", 0) > 0, f"no {key} in the bench: {tf32}")
+    check_result_line(result, smi, "engine bench")
+    emit({"phase": "bench", "mode": "engine", "result": result, "batches_per_stage": dict(batches),
+          "peak_memory_gb": peak_gb, "launches_measured_pass_1": launches,
+          "resblock_shapes": len(kernels.shapes), "rvq_shapes": len(kernels.rvq_shapes),
+          "max_rvq_rows": max(n for n, _ in kernels.rvq_shapes),
+          "rvq_books": sorted({k for _, k in kernels.rvq_shapes}),
+          "max_resblock_rows": max(b for b, _, _ in kernels.shapes),
+          "max_resblock_elements": max(b * c * t for b, c, t in kernels.shapes),
+          "tf32_calls": tf32, "phase_seconds": engine_phase_seconds})
+
+    [engine] = engines
+    audios, audios16 = benchmark.engine_workload(BENCH_UTTS, 0, engine.engine_cfg)
+    profile = device_breakdown(torch, lambda: engine.encode_batch(audios))
+    emit({"phase": "bench", "mode": "engine_profile", **profile})
+
+    # --- fused 16 kHz: against resample-then-encode on the card, then the
+    # card against the CPU engine at 16 and 48 kHz
+    sample = audios16[:: len(audios16) // BENCH_FUSED_SAMPLE][:BENCH_FUSED_SAMPLE]
+    fused = engine.encode_batch(sample, sr=16_000)
+    unfused = engine.encode_batch(resample_many(sample, 16_000, SR, device=engine.device))
+    for a, c in zip(sample, fused):
+        valid = -(-len(a) * 3 // 2)
+        check(c.shape == (engine.num_codebooks, -(-valid // SPF)),
+              f"fused codes {c.shape} for {len(a)} samples")
+    fused_vs_unfused = frame_match(fused, unfused, "fused vs unfused")
+    check(fused_vs_unfused >= 0.999, f"fused vs unfused frame match {fused_vs_unfused}")
+    cpu = MimiEncoderEngine(random_params(engine.cfg, seed=0), engine.cfg, engine.engine_cfg,
+                            device="cpu")
+    rng = np.random.default_rng(SEED + 7)
+    card_vs_cpu = {}
+    for sr in (16_000, 48_000):
+        rows = [(rng.standard_normal(int(s * sr)) * 0.3 * 32767).astype(np.int16)
+                for s in BENCH_TIE_SECONDS]
+        card_codes = engine.encode_batch(rows, sr=sr)
+        cpu_codes = cpu.encode_batch(rows, sr=sr)
+        card_vs_cpu[sr] = {"frames": sum(c.shape[1] for c in cpu_codes),
+                           "frame_match": frame_match(card_codes, cpu_codes, f"card vs cpu {sr}")}
+        check(card_vs_cpu[sr]["frame_match"] >= 0.999, f"card vs CPU at {sr} Hz: {card_vs_cpu}")
+    emit({"phase": "bench", "mode": "fused_16k", "utterances": len(sample),
+          "frames": sum(c.shape[1] for c in fused), "fused_vs_unfused_frame_match": fused_vs_unfused,
+          "card_vs_cpu": card_vs_cpu})
+    del engine, engines[:], cpu
+    torch.cuda.empty_cache()
+
+    # --- pipeline, compare, mp3, soak and the CLI
+    def run_mode(mode, fn, **kw):
+        t0 = time.perf_counter()
+        res = fn(**kw)
+        check_result_line(res, smi, mode)
+        emit({"phase": "bench", "mode": mode, "result": res,
+              "phase_seconds": time.perf_counter() - t0})
+        return res
+
+    work = Path(tmp) / "pipeline"
+    run_mode("pipeline", benchmark.run_pipeline_bench, work_root=str(work), **BENCH_MIRROR)
+    check(hub_jsons(work) == [f"{s:08d}.json" for s in range(BENCH_MIRROR["subshards"])],
+          f"pipeline hub {hub_jsons(work)}")
+    run_mode("compare", benchmark.run_compare, passes=3, **BENCH_MIRROR)
+    missing = []
+    for lib in MP3_LIBRARIES:
+        try:
+            ctypes.CDLL(lib)
+        except OSError:
+            missing.append(lib)
+    if missing:
+        emit({"phase": "bench_mp3", "ran": False, "missing": missing})
+    else:
+        work = Path(tmp) / "mp3"
+        run_mode("mp3", benchmark.run_pipeline_bench, container="mp3", work_root=str(work),
+                 **BENCH_MP3)
+        check(hub_jsons(work) == ["00000000.json"], f"mp3 hub {hub_jsons(work)}")
+    soak = run_mode("soak", benchmark.run_soak, **BENCH_SOAK)
+    check(soak["detail"]["error_count"] == 0 and soak["detail"]["iterations"] >= 1,
+          f"soak {soak['detail']}")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = benchmark.main(BENCH_CLI)
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"benchmark CLI: rc {rc}, stdout {lines}")
+    cli = json.loads(lines[0])
+    check_result_line(cli, smi, "benchmark CLI")
+    emit({"phase": "bench", "mode": "cli", "argv": BENCH_CLI, "line": cli,
+          "bench_phase_seconds": time.perf_counter() - t_phase})
+    return launches, kernels.shapes, kernels.rvq_shapes
+
+
 def start_extra_build(name: str, src: str, entry: str, argtypes):
     """Start ``nvcc`` on another version of a kernel's source into
     ``lib<name>.so``; returns a function that waits for it and returns its
@@ -848,14 +1083,15 @@ def start_extra_build(name: str, src: str, entry: str, argtypes):
     return finish
 
 
-def phase_replay(torch, shapes, peak_flops, peak_bw, extras):
-    """The resblock kernel at every (B, C, T) the main path launched it
-    with: agreement with the plain version (1e-4 x max|plain|), CUDA-event
-    times of the kernel and the plain version, and the FP32 bound; and the
-    time and error of each of ``extras`` (name -> the C entry of another
-    build: ``baseline`` takes HF-layout weights and must agree, the others
-    take packed weights and their error is only reported). Returns the sums
-    per C, each shape weighted by its launch count."""
+def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path"):
+    """The resblock kernel at every (B, C, T) a path (``path``: the main
+    path's or the bench's) launched it with, on inputs drawn on the card:
+    agreement with the plain version (1e-4 x max|plain|), CUDA-event times
+    of the kernel and the plain version, and the FP32 bound; and the time
+    and error of each of ``extras`` (name -> the C entry of another build:
+    ``baseline`` takes HF-layout weights and must agree, the others take
+    packed weights and their error is only reported). Returns the sums per
+    C, each shape weighted by its launch count."""
     from tokenize_audio_tpu_torch.config import ieee_fp32
     from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
     from tokenize_audio_tpu_torch.ops.cuda import seanet
@@ -870,19 +1106,20 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras):
         weights[c] = (*w, seanet.pack_weights(w[0], w[2]))
         c *= 2
     rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
     with ieee_fp32():
         for (b, c, t), count in sorted(shapes.items(), key=lambda kv: (kv[0][1], kv[0][0] * kv[0][2])):
             w3, b3, w1, b1, packed = weights[c]
             c2 = c // 2
-            xs = (rng.standard_normal((b, c, t)) * 0.5).astype(np.float32)
             valid = rng.integers(t // 2, t + 1, b).astype(np.int32)
             valid[0] = t
-            for i, vl in enumerate(valid):
-                xs[i, :, vl:] = 0.0
-            xt, vt = torch.from_numpy(xs).to(dev), torch.from_numpy(valid).to(dev)
-            del xs
+            vt = torch.from_numpy(valid).to(dev)
+            # drawn on the card: the bench's shapes hold up to ~3e8 elements
+            xt = torch.randn((b, c, t), generator=gen, device=dev).mul_(0.5)
+            xt.masked_fill_(torch.arange(t, device=dev)[None, None, :] >= vt[:, None, None], 0.0)
             args = (xt, vt, w3, b3, w1, b1)
             got = seanet.resblock_elu(*args, packed=packed)
             want = seanet.resblock_elu_reference(*args)
@@ -929,12 +1166,13 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras):
              for k in per_c[min(per_c)] if k == "launches" or k.endswith("ms")}
     summary = {"per_C": per_c, "total": total, "max_abs_err": max(r["max_abs_err"] for r in rows),
                "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed"}
-    emit({"phase": "replay", **summary})
+    emit({"phase": "replay", "path": path, **summary})
     return summary
 
 
-def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras):
-    """The RVQ kernel at every (N, K) the main path launched it with, on
+def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras, path="main_path"):
+    """The RVQ kernel at every (N, K) a path (``path``: the main path's or
+    the bench's) launched it with, on
     the model's codebooks (K = 1: the semantic book, else the first K
     acoustic ones) and standard-normal rows: code agreement with the plain
     version (>= 0.999, first divergences near-ties), CUDA-event times of
@@ -981,7 +1219,7 @@ def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras):
     total["max_rel_margin"] = max(r["max_rel_margin"] for r in rows)
     summary = {"total": total, "per_shape": rows,
                "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed"}
-    emit({"phase": "rvq_replay", **summary})
+    emit({"phase": "rvq_replay", "path": path, **summary})
     return summary
 
 
@@ -1062,13 +1300,21 @@ def main(argv=None) -> int:
         launches, shapes, rvq_shapes = phase_main(torch)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_yodas2_") as tmp:
             yodas2_launches = phase_yodas2(torch, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+            bench_launches, bench_shapes, bench_rvq_shapes = phase_bench(torch, tmp, smi)
         for r in records:
             r["launches"] = launches[r["name"]]
             r["yodas2_launches"] = yodas2_launches[r["name"]]
-        main_path = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
-        next(r for r in records if r["name"] == "resblock_elu")["main_path"] = main_path
-        rvq_main = phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, rvq_extras)
-        next(r for r in records if r["name"] == "rvq_quantize")["main_path"] = rvq_main["total"]
+            r["bench_launches"] = bench_launches[r["name"]]
+        rb = next(r for r in records if r["name"] == "resblock_elu")
+        rb["main_path"] = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
+        rb["bench_path"] = phase_replay(torch, bench_shapes, peak_flops, peak_bw, {},
+                                        path="bench_path")
+        rq = next(r for r in records if r["name"] == "rvq_quantize")
+        rq["main_path"] = phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw,
+                                           rvq_extras)["total"]
+        rq["bench_path"] = phase_rvq_replay(torch, bench_rvq_shapes, peak_flops, peak_bw, {},
+                                            path="bench_path")["total"]
         phase_tie(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

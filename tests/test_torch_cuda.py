@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from torch_yodas2_mirror import Entry, noise_pcm, write_mirror
+from tokenize_audio_tpu_torch import benchmark
 from tokenize_audio_tpu_torch.config import EngineConfig, ieee_fp32
 from tokenize_audio_tpu_torch.core.audio import resample, resample_many
 from tokenize_audio_tpu_torch.datasets import yodas2
@@ -294,4 +295,36 @@ def test_resample_and_yodas2_on_card_equal_cpu(cuda, tmp_path, monkeypatch):
     assert sorted(codes["cuda"]) == sorted(codes["cpu"]) and len(codes["cpu"]) == 12
     same = np.concatenate([(codes["cuda"][k] == codes["cpu"][k]).reshape(-1)
                            for k in codes["cpu"]])
+    assert same.mean() >= 0.99, same.mean()
+
+
+def test_engine_bench_on_card_fused_16k_equals_cpu(cuda, monkeypatch):
+    """The tiny-config engine bench on the card (no ``device``: the card),
+    both kernels launched; its engine's fused 16 kHz codes of the bench
+    workload equal the CPU engine's on >= 0.99 of codes, each of the JAX
+    shape (8, ceil(ceil(len * 3 / 2) / 1920))."""
+    ecfg = EngineConfig(batch_size=4, min_bucket_seconds=0.5, max_chunk_seconds=4.0)
+    engines = []
+    real = benchmark.MimiEncoderEngine
+
+    def capture(*args, **kwargs):
+        engines.append(real(*args, **kwargs))
+        return engines[-1]
+
+    monkeypatch.setattr(benchmark, "MimiEncoderEngine", capture)
+    r0, s0 = rvq.rvq_quantize.launches, seanet.resblock_elu.launches
+    res = benchmark.run_engine_bench(n_utts=6, passes=2, mimi_cfg=TINY, engine_cfg=ecfg)
+    assert rvq.rvq_quantize.launches > r0 and seanet.resblock_elu.launches > s0
+    assert res["value"] > 0 and res["detail"]["fused_16khz_x_realtime"] > 0
+    assert "vs_baseline" not in res and res["detail"]["device"] != "cpu"
+    [card] = engines
+    assert card.device.type == "cuda"
+    _, audios16 = benchmark.engine_workload(6, 0, ecfg)
+    got = card.encode_batch(audios16, sr=16_000)
+    want = MimiEncoderEngine(random_params(TINY, seed=0), TINY, ecfg,
+                             device="cpu").encode_batch(audios16, sr=16_000)
+    for a, g, w in zip(audios16, got, want):
+        valid = -(-len(a) * 3 // 2)
+        assert g.shape == w.shape == (8, -(-valid // 1920))
+    same = np.concatenate([(g == w).reshape(-1) for g, w in zip(got, want)])
     assert same.mean() >= 0.99, same.mean()

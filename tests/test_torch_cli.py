@@ -1,7 +1,8 @@
 """PyTorch port, CLI: the shared engine flags (``add_engine_args``) reach the
 port's engine (``engine_from_args``) on the tiny config, the kernel backends
 are the default, unported features parse and then raise
-NotImplementedError, and --warmup / --profile-dir do what they say."""
+NotImplementedError, --long-audio-policy stream streams, and --warmup /
+--profile-dir do what they say."""
 
 import argparse
 import dataclasses
@@ -67,7 +68,7 @@ def test_jax_backend_names_are_refused(parse, flag, value):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--fast"], ["--precision", "high"], ["--long-audio-policy", "stream"],
+    ["--fast"], ["--precision", "high"],
     ["--code-transfer-format", "auto"], ["--code-transfer-format", "auto-data"],
     ["--pipeline-depth", "auto"], ["--pipeline-depth", "auto-data"],
     ["--drain-policy", "auto"], ["--drain-policy", "ready"], ["--drain-policy", "threaded"],
@@ -80,6 +81,15 @@ def test_unported_features_parse_then_raise(parse, monkeypatch, flags):
     with pytest.raises(NotImplementedError):
         cli.engine_from_args(args)
     assert warmed == []  # refused before any warmup work
+
+
+def test_long_audio_policy_stream_reaches_the_engine(parse):
+    eng = cli.engine_from_args(parse(["--device", "cpu", "--long-audio-policy", "stream",
+                                      "--max-chunk-seconds", "0.25"]))
+    assert eng.engine_cfg.long_audio_policy == "stream"
+    audio = (np.random.default_rng(1).standard_normal(12_000) * 0.3).astype(np.float32)
+    assert eng.encode_chunk(audio).shape == (8, 7)
+    assert eng.stats.stage_seconds["stream"] > 0  # over the cap: streamed
 
 
 @pytest.mark.parametrize("tails", [False, True])

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain version at
-small and ragged shapes, and the tiny-config encode and engine on the card
-against the same code on the CPU. Each test asks for the ``cuda`` fixture,
-which skips it where no CUDA device is present; run on a GPU machine with
+small and ragged shapes, and the tiny-config encode, stream, engine and
+decode on the card against the same code on the CPU. Each test asks for
+the ``cuda`` fixture, which skips it where no CUDA device is present; run
+on a GPU machine with
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
@@ -22,7 +23,14 @@ from tokenize_audio_tpu_torch.core.audio import resample, resample_many
 from tokenize_audio_tpu_torch.datasets import yodas2
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
 from tokenize_audio_tpu_torch.hub import LocalHub
-from tokenize_audio_tpu_torch.mimi import MimiConfig, encode, params_to_torch, random_params
+from tokenize_audio_tpu_torch.mimi import (
+    MimiConfig,
+    decode,
+    encode,
+    params_to_torch,
+    random_params,
+    streaming,
+)
 from tokenize_audio_tpu_torch.ops.cuda import rvq, seanet
 
 TINY = MimiConfig(
@@ -328,3 +336,77 @@ def test_engine_bench_on_card_fused_16k_equals_cpu(cuda, monkeypatch):
         assert g.shape == w.shape == (8, -(-valid // 1920))
     same = np.concatenate([(g == w).reshape(-1) for g, w in zip(got, want)])
     assert same.mean() >= 0.99, same.mean()
+
+
+def test_stream_step_on_card_equals_cpu(cuda):
+    """One stream step on the card (RVQ kernel launched) against the CPU:
+    codes, frame counts and the carried state; then a multiplexed
+    encode_streams with ragged ends and a horizon cut."""
+    params = random_params(TINY, seed=4)
+    rng = np.random.default_rng(10)
+    cs = 4 * 1920
+    chunk = (rng.standard_normal((3, cs)) * 0.3).astype(np.float32)
+    valid = np.array([cs, cs, 5000], dtype=np.int32)
+    chunk[2, 5000:] = 0.0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = streaming.init_state(TINY, 3, max_frames_25hz=64, device=dev)
+        r0 = rvq.rvq_quantize.launches
+        codes, v12 = streaming.stream_step(
+            params_to_torch(params, dev), TINY, state, torch.from_numpy(chunk).to(dev),
+            torch.from_numpy(valid).to(dev), num_quantizers=12)
+        if dev == "cuda":
+            assert rvq.rvq_quantize.launches == r0 + 2  # semantic + acoustic
+        out[dev] = codes.cpu(), v12.cpu(), state
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert float((out["cuda"][0] == out["cpu"][0]).float().mean()) >= 0.99
+    for got, want in zip(out["cuda"][2].conv_caches + [out["cuda"][2].kv],
+                         out["cpu"][2].conv_caches + [out["cpu"][2].kv]):
+        assert got.shape == want.shape
+        if want.numel():  # the k=1 convs keep no context
+            scale = float(want.abs().max())
+            assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+    audios = [(rng.standard_normal(n) * 0.3).astype(np.float32)
+              for n in (11 * 1920 + 300, 3 * 1920, 7 * 1920)]
+    kw = dict(batch=4, chunk_seconds=2 * 1920 / 24_000, max_seconds=5 * 1920 / 24_000,
+              num_quantizers=12)
+    want = streaming.StreamingMimiEncoder(params, TINY, device="cpu", **kw).encode_streams(audios)
+    got = streaming.StreamingMimiEncoder(params, TINY, **kw).encode_streams(audios)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    same = np.concatenate([(g == w).reshape(-1) for g, w in zip(got, want)])
+    assert same.mean() >= 0.99, same.mean()
+
+
+def test_stream_policy_kernel_backends_equal_torch_backends(cuda):
+    """The engine's stream policy on the card: the kernel RVQ backend (the
+    default) against the plain "torch" backends, and against the CPU."""
+    params = random_params(TINY, seed=5)
+    ecfg = EngineConfig(batch_size=2, min_bucket_seconds=0.25, max_chunk_seconds=1.0,
+                        long_audio_policy="stream")
+    rng = np.random.default_rng(11)
+    audios = [(rng.standard_normal(n) * 8000).astype(np.int16) for n in (30_000, 10_000, 61_000)]
+    plain = dataclasses.replace(TINY, rvq_backend="torch", seanet_backend="torch")
+    r0 = rvq.rvq_quantize.launches
+    got = MimiEncoderEngine(params, TINY, ecfg, num_codebooks=12).encode_batch(audios)
+    assert rvq.rvq_quantize.launches > r0
+    for other in (MimiEncoderEngine(params, plain, ecfg, num_codebooks=12),
+                  MimiEncoderEngine(params, TINY, ecfg, num_codebooks=12, device="cpu")):
+        want = other.encode_batch(audios)
+        assert [g.shape for g in got] == [w.shape for w in want]
+        same = np.concatenate([(g == w).reshape(-1) for g, w in zip(got, want)])
+        assert same.mean() >= 0.99, same.mean()
+
+
+def test_decode_on_card_equals_cpu(cuda, monkeypatch):
+    """decode on the card within atol 3e-4 * max|CPU|, rtol 1e-3 of the CPU,
+    with TF32 switched on by the caller (the decoder runs in IEEE fp32)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    params = random_params(TINY, seed=6)
+    codes = torch.from_numpy(np.random.default_rng(12).integers(0, 64, size=(2, 12, 7)))
+    want = decode(params_to_torch(params, "cpu"), TINY, codes)
+    got = decode(params_to_torch(params, cuda), TINY, codes.to(cuda)).cpu()
+    assert got.shape == want.shape == (2, 7 * 1920)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=3e-4 * scale, rtol=1e-3)

@@ -100,7 +100,6 @@ def test_engine_needs_a_device(oracle):
 @pytest.mark.parametrize(
     "kw",
     [
-        {"engine_cfg": EngineConfig(long_audio_policy="stream")},
         {"engine_cfg": EngineConfig(drain_policy="ready")},
         {"engine_cfg": EngineConfig(drain_policy="threaded")},
         {"mesh": object()},

@@ -137,9 +137,8 @@ def add_engine_args(ap: argparse.ArgumentParser, batch_size: int = 16) -> None:
         "--long-audio-policy",
         default="split",
         choices=["split", "stream"],
-        help="split = reference-parity 60s cuts; stream (exact codes via the "
-        "streaming encoder) is not ported yet: the engine raises "
-        "NotImplementedError",
+        help="split = reference-parity 60s cuts; stream = exact codes via "
+        "the streaming encoder up to 320s",
     )
 
 
@@ -198,7 +197,7 @@ def engine_from_args(
     if getattr(args, "profile_dir", None):
         _start_profiler(args.profile_dir)
 
-    # the format/depth/drain probes are not ported yet (ROADMAP queue A #9):
+    # the format/depth/drain probes are not ported yet (ROADMAP queue A #12):
     # each of these calls raises NotImplementedError, before any warmup
     probe_s = getattr(args, "autotune_seconds", 40.0)
     if fmt_arg == "auto":

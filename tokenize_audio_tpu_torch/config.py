@@ -146,10 +146,15 @@ class EngineConfig:
     # what to do with audio over max_chunk_seconds:
     #   "split"  — reference parity: independent <=cap pieces, codes
     #              concatenated (yodas2-mimi/process_shard.py:436-493)
-    #   "stream" — exact codes via the streaming encoder (not ported yet:
-    #              the port's engine raises NotImplementedError)
+    #   "stream" — EXACT codes via the streaming encoder (conv caches + KV
+    #              cache; identical to a one-shot encode of the whole
+    #              stream) up to stream_max_seconds, beyond which the stream
+    #              is cut at that much larger boundary
     long_audio_policy: str = "split"
     stream_max_seconds: float = 320.0  # HF one-shot horizon (8000 positions @25 Hz)
+    # max >cap utterances multiplexed through ONE carried-state streaming
+    # encoder (per-row valid ends; mimi/streaming.py encode_streams). Each
+    # row of a full-causal 320 s KV cache is ~262 MB f32, so 8 rows ~2.1 GB.
     stream_batch: int = 8
     # dtype of the per-utterance code arrays the engine returns (and of
     # the "padded" transfer). uint16 is lossless (codebook 2048).

@@ -1,5 +1,5 @@
-"""Audio DSP for the port. The code<->unicode codec (``core/codes.py`` of the
-JAX package) joins with the codec API that uses it (``codec.MimiCodec``)."""
+"""Audio DSP for the port (``core.audio``) and the code<->unicode converter
+(``core.codes``)."""
 
 from tokenize_audio_tpu_torch.core.audio import (  # noqa: F401
     bucket_for_length,

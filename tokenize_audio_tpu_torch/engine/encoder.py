@@ -19,10 +19,13 @@ Differences from the reference:
     with ``non_blocking=True`` behind a recorded event, so padding the next
     batch overlaps the device work of the previous ones.
 
-Not ported yet: a device mesh / multi-GPU, ``long_audio_policy="stream"``,
-the "ready"/"threaded" drains, autotuning and the bfloat16 / TF32 modes
-(each raises NotImplementedError when asked for), and transient-fault
-retry.
+With ``long_audio_policy="stream"``, utterances over the cap are encoded
+exactly by the streaming encoder (``mimi/streaming.py``), up to
+``stream_batch`` of them multiplexed through one carried state.
+
+Not ported yet: a device mesh / multi-GPU, the "ready"/"threaded" drains,
+autotuning and the bfloat16 / TF32 modes (each raises NotImplementedError
+when asked for), and transient-fault retry.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from tokenize_audio_tpu_torch.engine.metrics import EngineStats
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.mimi.model import _check_modes
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
+from tokenize_audio_tpu_torch.mimi.streaming import StreamingMimiEncoder
 from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
 from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
 from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
@@ -120,6 +124,7 @@ class MimiEncoderEngine:
         self.masked = masked
         self.stats = EngineStats()
         self._bucket_cache: dict = {}
+        self._stream_encoders: dict = {}  # stream batch size -> encoder
         self.buckets = self._buckets_for(
             self.engine_cfg.sample_rate, self.cfg.samples_per_frame
         )
@@ -133,11 +138,6 @@ class MimiEncoderEngine:
         if self.engine_cfg.drain_policy != "fifo":
             raise NotImplementedError(
                 f"drain_policy {self.engine_cfg.drain_policy!r} is not ported; use 'fifo'"
-            )
-        if self.engine_cfg.long_audio_policy != "split":
-            raise NotImplementedError(
-                f"long_audio_policy {self.engine_cfg.long_audio_policy!r} is not "
-                "ported; use 'split'"
             )
         if fmt != "padded" and self.num_codebooks % 2 != 0:
             if fmt == "compact":
@@ -394,11 +394,23 @@ class MimiEncoderEngine:
         pieces: List[np.ndarray] = []
         piece_of: List[int] = []
         piece_drop: List[int] = []  # leading context frames to discard
+        stream_jobs: List[tuple] = []  # (utterance index, 24 kHz float audio)
         cap = int(self.engine_cfg.max_chunk_seconds * domain_sr)
         ctx = int(self.engine_cfg.split_context_seconds * domain_sr)
         for i, a in enumerate(prepared):
             self.stats.audio_seconds += len(a) / domain_sr
             self.stats.utterances += 1
+            if self.engine_cfg.long_audio_policy == "stream" and len(a) > cap:
+                if domain_sr != rate:
+                    # the streaming encoder consumes 24 kHz audio: resample
+                    # this utterance as the unfused path does
+                    with self.stats.stage("resample"):
+                        a = resample(pcm_to_float(a), domain_sr, rate, device=self.device)
+                        a = a.cpu().numpy()
+                # the streaming encoder consumes float audio (push() casts
+                # without PCM scaling); normalize raw-int16 fast-path input
+                stream_jobs.append((i, pcm_to_float(a)))
+                continue
             for p, drop in split_long_audio_with_context(a, cap, ctx, spf_io):
                 pieces.append(p)
                 piece_of.append(i)
@@ -444,6 +456,27 @@ class MimiEncoderEngine:
         def finish() -> List[np.ndarray]:
             while inflight:
                 drain_one()
+
+            # long-audio streaming, MULTIPLEXED: up to stream_batch >cap
+            # utterances share one carried-state encoder (per-row ends — a
+            # YODAS2 shard of K full videos streams in ~1/K the steps),
+            # identical to the serial path
+            streamed: dict = {}
+            for s in range(0, len(stream_jobs), self.engine_cfg.stream_batch):
+                grp = stream_jobs[s : s + self.engine_cfg.stream_batch]
+                enc = self._stream_encoder_for(len(grp))
+                with self.stats.stage("stream"):
+                    codes_list = enc.encode_streams([a for _, a in grp])
+                for (i, _), c in zip(grp, codes_list):
+                    with self.stats._lock:
+                        self.stats.frames += c.shape[1]
+                        # streamed frames carry no bucket padding; count
+                        # them on both sides so bucket_efficiency keeps
+                        # measuring bucketed waste only
+                        self.stats.padded_frames += c.shape[1]
+                    # match the bucketed path's configured transfer dtype
+                    streamed[i] = c.astype(np.dtype(self.engine_cfg.code_transfer_dtype))
+
             # reassemble per-utterance codes (concat split pieces on time
             # axis, dropping overlap-context frames when configured)
             out: List[List[np.ndarray]] = [[] for _ in prepared]
@@ -452,11 +485,43 @@ class MimiEncoderEngine:
                 drop = piece_drop[p_idx]
                 out[owner].append(c[:, drop:] if drop else c)
             return [
-                parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
-                for parts in out
+                streamed[i]
+                if i in streamed
+                else (parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1))
+                for i, parts in enumerate(out)
             ]
 
         return finish if defer else finish()
+
+    def _stream_encoder_for(self, n_streams: int) -> StreamingMimiEncoder:
+        """Carried-state streaming encoder sized to the next power of two
+        >= n_streams, cached per size (unused rows ride along as
+        zero-length streams), on the engine's device copy of the pruned,
+        packed params. Exact long-audio encode: codes identical to a
+        one-shot encode of the whole stream (no 60 s receptive-field cuts).
+        Full-causal configs cut streams beyond stream_max_seconds (the HF
+        one-shot horizon) at that whole-chunk boundary inside
+        encode_streams, each piece streamed exactly; windowed configs never
+        cut."""
+        cap = self.engine_cfg.stream_batch
+        b = 1
+        while b < min(n_streams, cap):
+            b *= 2
+        # cap is a bound, not a rounding target: a non-power-of-two
+        # stream_batch must not balloon into the next power (full-causal
+        # KV is ~262 MB per row)
+        b = min(b, cap)
+        if b not in self._stream_encoders:
+            self._stream_encoders[b] = StreamingMimiEncoder(
+                self.params,
+                self.cfg,
+                batch=b,
+                chunk_seconds=min(8.0, self.engine_cfg.stream_max_seconds),
+                max_seconds=self.engine_cfg.stream_max_seconds,
+                num_quantizers=self.num_codebooks,
+                device=self.device,
+            )
+        return self._stream_encoders[b]
 
     def warmup(self, sr: int = 24_000, include_tails: bool = False) -> int:
         """Run one full-batch encode per bucket of the ``sr`` lattice (the

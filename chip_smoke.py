@@ -74,18 +74,35 @@ the run (non-zero exit, no final result line) if its check fails:
                 resample-then-encode on the card and the card against the
                 CPU engine at 16 and 48 kHz; then the pipeline, compare, mp3
                 (where libmp3lame and libmpg123 load), soak and CLI modes;
-  9. replay   — the resblock kernel at each shape recorded on the main path,
-                the YODAS2 path and the bench: agreement with its plain
-                version, CUDA-event times and the FP32 bound, summed per C
-                as count x ms (the ``main_path``, ``yodas2_path`` and
-                ``bench_path`` entries of its record);
- 10. rvq_replay — the RVQ kernel at each recorded (N, K) of the main,
-                stream, YODAS2 and bench paths, on the model's codebooks:
-                code agreement with its plain version (first divergences
-                must be near-ties), CUDA-event times and the FP32 bound,
-                summed as count x ms (the ``main_path``, ``stream_path``,
-                ``yodas2_path`` and ``bench_path`` entries of its record);
- 11. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
+  9. corpora  — the four corpus processors' command lines in process on the
+                card (default engine flags): LibriSpeech (40 utterances of
+                16 kHz FLAC, 2-30 s, train layout in two chunks, then the
+                devtest layout on 8), Common Voice (48 clips of 48 kHz WAV
+                bytes, 1-10 s), LibriTTS-R tts0 (24 float32 24 kHz arrays,
+                1-15 s), MLS stage 1 (24 rows of 10-20 s at 16 kHz, FLAC
+                bytes and arrays) and stage 2, Emilia standard and
+                conversational (a tar of 24 WAV members of 3-20 s, two at
+                16 kHz, and a corrupt one): complete reports, every
+                utterance's rows, a rerun that launches no kernel, both
+                kernels' launches and shapes (the ``corpus_path``), every
+                ``audio_str`` against a direct encode_batch_mixed (>= 0.999
+                of frames, flips near-ties), TF32 flags in every thread, one
+                LibriSpeech and one Common Voice utterance against the CPU
+                engine, RTF and host stage seconds per corpus;
+ 10. replay   — the resblock kernel at each shape recorded on the main path,
+                the YODAS2 path, the bench and the corpora: agreement with
+                its plain version, CUDA-event times and the FP32 bound,
+                summed per C as count x ms (the ``main_path``,
+                ``yodas2_path``, ``bench_path`` and ``corpus_path`` entries
+                of its record);
+ 11. rvq_replay — the RVQ kernel at each recorded (N, K) of the main,
+                stream, YODAS2, bench and corpus paths, on the model's
+                codebooks: code agreement with its plain version (first
+                divergences must be near-ties), CUDA-event times and the
+                FP32 bound, summed as count x ms (the ``main_path``,
+                ``stream_path``, ``yodas2_path``, ``bench_path`` and
+                ``corpus_path`` entries of its record);
+ 12. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
 A ``phase_seconds`` line gives each phase's seconds, before the card's
@@ -119,6 +136,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -1499,6 +1517,453 @@ def phase_bench(torch, tmp, smi):
     return launches, kernels.shapes, kernels.rvq_shapes
 
 
+CORPUS_SEED = SEED + 10
+LS_UTTERANCES, LS_DEVTEST = 40, 8  # LibriSpeech train manifest; devtest on the first 8
+CV_ROWS = 48  # Common Voice, 1-10 s clips at 48 kHz
+LTTS_GROUPS = (3, 2, 4)  # LibriTTS-R: speakers x chapters x utterances, 1-15 s
+MLS_LAYOUT = (2, 2, 6)  # MLS: speakers x books x utterances, 10-20 s at 16 kHz
+EMILIA_SPEAKERS, EMILIA_PER_SPEAKER = 4, 6  # 3-20 s, two members at 16 kHz
+EMILIA_SHARD = "EN_B00000"
+EMILIA_CORRUPT = f"{EMILIA_SHARD}_S00009_W000000"
+AUDIO_SPAN = re.compile("<\\|audio_start\\|>(.*?)<\\|audio_end\\|>")
+
+
+def run_cli(torch, module, argv):
+    """One in-process run of a processor's command line, ``module.main(argv)``
+    (no ``--device``: the card; default engine flags), its stdout kept off
+    this script's. Returns the report, the engine it built (None for MLS
+    stage 2; its stats reset once built) and its wall seconds from then."""
+    from tokenize_audio_tpu_torch.engine import EngineStats
+
+    orig, built = module.engine_from_args, []
+
+    def capture(*args, **kwargs):
+        engine = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        engine.stats = EngineStats()
+        built.append(engine)
+        return engine
+
+    module.engine_from_args = capture
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = module.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        module.engine_from_args = orig
+    engine = built[0] if built else None
+    return report, engine, engine.stats.wall_seconds if engine else 0.0
+
+
+class HostStages:
+    """Seconds spent in each of ``targets`` ((module, attribute, stage)
+    triples), summed over every thread while installed."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds, self.lock = targets, collections.Counter(), threading.Lock()
+
+    def __enter__(self):
+        self.orig = [getattr(mod, attr) for mod, attr, _ in self.targets]
+        for (mod, attr, stage), fn in zip(self.targets, self.orig):
+            def timed(*args, _fn=fn, _stage=stage, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    with self.lock:
+                        self.seconds[_stage] += time.perf_counter() - t0
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, attr, _), fn in zip(self.targets, self.orig):
+            setattr(mod, attr, fn)
+
+    def take(self):
+        with self.lock:
+            out, self.seconds = dict(self.seconds), collections.Counter()
+        return out
+
+
+def corpus_inputs(tmp, rng):
+    """Write each corpus's input under ``tmp`` (a LibriSpeech manifest of
+    16 kHz FLAC files; Common Voice, LibriTTS-R and MLS parquet shards on
+    local source hubs; an Emilia tar) and return, per corpus, its command
+    lines and the audio of each utterance as its processor decodes it."""
+    import torch_corpora as tc
+
+    from tokenize_audio_tpu_torch.datasets import mls
+    from tokenize_audio_tpu_torch.datasets.parquet_corpus import _decode_embedded_audio
+    from tokenize_audio_tpu_torch.datasets.parquet_utils import read_parquet, write_parquet
+    from tokenize_audio_tpu_torch.hub import LocalHub
+    from tokenize_audio_tpu_torch.io import decode_audio
+
+    tmp = Path(tmp)
+    out = {}
+
+    # LibriSpeech: lognormal 2-30 s (median 10 s), 16 kHz mono FLAC
+    durs = np.clip(rng.lognormal(math.log(10.0), 0.6, LS_UTTERANCES), 2.0, 30.0)
+    utts = [(f"{19 + i % 3}-{198 + i // 10}-{i:04d}", tc.tone_pcm(rng, d, 16_000), 16_000, "flac",
+             f"utterance {i} of the manifest") for i, d in enumerate(durs)]
+    manifest = tc.write_librispeech(str(tmp / "ls" / "audio"), utts)
+    dev = tmp / "ls" / "devtest.json"
+    dev.write_text(json.dumps(json.loads(Path(manifest).read_text())[:LS_DEVTEST]))
+    ls = tmp / "ls"
+    out["librispeech"] = {
+        "runs": [("librispeech", ["--manifest", manifest, "--split", "train-clean-100",
+                                  "--hub", f"dir:{ls / 'hub'}", "--progress-dir", str(ls / "prog"),
+                                  "--work-dir", str(ls / "work"), "--chunk-rows", "40"]),
+                 ("librispeech", ["--manifest", str(dev), "--split", "dev-clean",
+                                  "--layout", "devtest", "--hub", f"dir:{ls / 'hub'}",
+                                  "--progress-dir", str(ls / "prog_dt"),
+                                  "--work-dir", str(ls / "work_dt")])],
+        "audio": {e["id"]: decode_audio(e["audio"], raw_int16=True)
+                  for e in json.loads(Path(manifest).read_text())},
+        "hub": ls / "hub",
+    }
+
+    def parquet_source(name, path, rows):
+        src = tmp / name / "src"
+        local = write_parquet(rows, str(tmp / name / "in.parquet"))
+        LocalHub(str(src)).upload_file(local, path)
+        # the cells as the processor reads them back
+        return src, {r["id"]: _decode_embedded_audio(r["audio"]) for r in read_parquet(local)}
+
+    # Common Voice: {'bytes': 48 kHz WAV, 'path'} cells
+    rows = [{"id": f"common_voice_en_{4000 + i}", "sentence": f"Sentence number {i}.",
+             "client_id": f"client{i % 7}",
+             "audio": {"bytes": tc.wav_bytes(tc.tone_pcm(rng, rng.uniform(1, 10), 48_000), 48_000),
+                       "path": f"common_voice_en_{4000 + i}.mp3"}} for i in range(CV_ROWS)]
+    src, audio = parquet_source("cv", "en/train-00000.parquet", rows)
+    out["common_voice"] = {
+        "runs": [("parquet_corpus", ["--corpus", "common_voice", "--split", "en",
+                                     "--shard-id", "train-00000", "--source-hub", f"dir:{src}",
+                                     "--target-hub", f"dir:{tmp / 'cv' / 'dst'}",
+                                     "--progress-dir", str(tmp / "cv" / "prog"),
+                                     "--work-dir", str(tmp / "cv" / "work")])],
+        "audio": audio, "hub": tmp / "cv" / "dst",
+    }
+
+    # LibriTTS-R tts0: {'array': float32, 'sampling_rate': 24000} cells
+    spk, chap, per = LTTS_GROUPS
+    rows = [{"id": f"{84 + s}_{121 + c}_{i:06d}", "text_normalized": f"Line {i} of {s}/{c}.",
+             "speaker_id": 84 + s, "chapter_id": 121 + c,
+             "audio": tc.audio_cell(tc.tone_pcm(rng, rng.uniform(1, 15), SR), SR, "array")}
+            for s in range(spk) for c in range(chap) for i in range(per)]
+    src, audio = parquet_source("ltts", "data/train-00000.parquet", rows)
+    out["libritts_r"] = {
+        "runs": [("parquet_corpus", ["--corpus", "libritts_r", "--variant", "tts0",
+                                     "--shard-id", "train-00000", "--source-hub", f"dir:{src}",
+                                     "--target-hub", f"dir:{tmp / 'ltts' / 'dst'}",
+                                     "--progress-dir", str(tmp / "ltts" / "prog"),
+                                     "--work-dir", str(tmp / "ltts" / "work")])],
+        "audio": audio, "hub": tmp / "ltts" / "dst",
+    }
+
+    # MLS: 16 kHz, half {'bytes': FLAC} and half {'array'} cells, consecutive
+    # times with a 1 s gap after every third utterance
+    s, b, per = MLS_LAYOUT
+    rows = tc.mls_rows(rng, [f"{1000 + i}" for i in range(s)], [f"{200 + i}" for i in range(b)],
+                       per_book=per, seconds=(10.0, 20.0), gap_every=3)
+    pq = write_parquet(rows, str(tmp / "mls" / "in.parquet"))
+    audio = {mls.make_entry_id(r["speaker_id"], r["book_id"], r["begin_time"], r["end_time"],
+                               r["transcript"]): _decode_embedded_audio(r["audio"])
+             for r in read_parquet(pq)}
+    m = tmp / "mls"
+    out["mls"] = {
+        "runs": [("mls", ["stage1", "--shard-id", "0000", "--parquet", pq, "--output-dir",
+                          str(m / "stage1"), "--progress-dir", str(m / "prog")]),
+                 ("mls", ["stage2", "--stage1-dir", str(m / "stage1"), "--batch-name",
+                          "batch_000", "--pairs", str(m / "pairs.txt"), "--hub",
+                          f"dir:{m / 'hub'}", "--work-dir", str(m / "work2")])],
+        "audio": audio, "hub": m / "hub", "stage1": m / "stage1", "pairs": m / "pairs.txt",
+    }
+
+    # Emilia: 24 kHz WAV members but two at 16 kHz (resampled in the
+    # processor's worker threads), SPEAKER_xx labels, one corrupt member
+    members, audio = [], {}
+    for sp in range(EMILIA_SPEAKERS):
+        for w in range(EMILIA_PER_SPEAKER):
+            uid = f"{EMILIA_SHARD}_S{sp:05d}_W{w:06d}"
+            sr = 16_000 if (sp, w) in ((0, 1), (2, 4)) else SR
+            pcm = tc.tone_pcm(rng, rng.uniform(3, 20), sr)
+            payload = tc.wav_bytes(pcm, sr)
+            members.append((f"{uid}.wav", payload,
+                            {"id": uid, "text": f"turn {w} of {sp}", "language": "en",
+                             "speaker": f"SPEAKER_{(sp + w) % 3:02d}",
+                             "duration": len(pcm) / sr}))
+            audio[uid] = decode_audio(payload, raw_int16=True)
+    members.append((f"{EMILIA_CORRUPT}.wav", tc.CORRUPT, {"text": "x", "speaker": "SPEAKER_00"}))
+    e = tmp / "emilia"
+    e.mkdir(parents=True)
+    tar = tc.write_emilia_tar(str(e / f"{EMILIA_SHARD}.tar"), EMILIA_SHARD, members)
+    LocalHub(str(e / "src")).upload_file(tar, f"Emilia/EN/{EMILIA_SHARD}.tar")
+    base = ["--lang", "EN", "--shard-id", EMILIA_SHARD, "--source-hub", f"dir:{e / 'src'}"]
+    out["emilia"] = {
+        "runs": [("emilia", [*base, "--target-hub", f"dir:{e / 'dst'}", "--work-dir",
+                             str(e / "work")]),
+                 ("emilia", [*base, "--conversational", "--target-hub", f"dir:{e / 'dst_conv'}",
+                             "--work-dir", str(e / "work_conv")])],
+        "audio": audio, "hub": e,
+    }
+    return out
+
+
+def corpus_strings(name, spec):
+    """Utterance id -> every ``audio_str`` the corpus's outputs hold for it
+    (each document's audio spans, mapped back to its utterances), and the
+    output row count."""
+    from tokenize_audio_tpu_torch.datasets.parquet_utils import read_parquet
+
+    found = collections.defaultdict(list)
+    rows = [(p, r) for p in sorted(Path(spec["hub"]).rglob("*.parquet")) for r in read_parquet(str(p))]
+    for path, r in rows:
+        spans = AUDIO_SPAN.findall(r["text"])
+        if name in ("librispeech", "common_voice"):
+            uids = [r["id"].rsplit("_type", 1)[0]]
+        elif name == "libritts_r":
+            uids = r["id"].split("#")
+        elif name == "mls":
+            uids = None  # stage-2 documents: held against the stage-1 JSONs below
+        else:  # emilia: a speaker's utterances in uid order
+            doc = r["id"].rsplit("_type", 1)[0]
+            uids = sorted(u for u in spec["audio"] if u.startswith(doc + "_")
+                          and u != EMILIA_CORRUPT)
+        if uids is None:
+            found["_stage2_spans"] += spans
+            continue
+        check(len(uids) == len(spans), f"{name} {path.name} {r['id']}: {len(spans)} audio spans "
+                                       f"for {len(uids)} utterances")
+        for u, s in zip(uids, spans):
+            found[u].append(s)
+    if name == "mls":
+        stage2 = found.pop("_stage2_spans")
+        for p in sorted(Path(spec["stage1"]).rglob("*.json")):
+            e = json.loads(p.read_text())
+            found[e["entry_id"]].append(e["audio_str"])
+        check(sorted(stage2) == sorted(s.strip() for ss in found.values() for s in ss
+                                       for _ in range(2)),
+              "mls stage-2 documents do not hold each stage-1 audio_str once per type")
+    return dict(found), len(rows)
+
+
+def direct_codes(torch, engine, audio, sr):
+    """``engine.encode_batch_mixed`` of one utterance on the card: its
+    (8, frames) codes and the RVQ input of that call (for flip margins)."""
+    from tokenize_audio_tpu_torch.mimi import model
+
+    seen, orig = {}, model.split_rvq_encode
+
+    def spy(p, emb, *args, **kwargs):
+        seen["emb"] = emb
+        return orig(p, emb, *args, **kwargs)
+
+    model.split_rvq_encode = spy
+    try:
+        [codes] = engine.encode_batch_mixed([(audio, sr)])
+    finally:
+        model.split_rvq_encode = orig
+    return codes, seen["emb"]
+
+
+def phase_corpora(torch, tmp):
+    """The four corpus processors' command lines, in process on the card at
+    full kyutai/mimi width (random weights, seed 0; each ``main`` builds its
+    engine from the default flags; ``cli.random_params`` is memoized so the
+    reruns do not draw the same weights again): LibriSpeech (train and
+    devtest layouts), Common Voice at 48 kHz, LibriTTS-R tts0, MLS stage 1
+    and 2, Emilia standard and conversational. Per corpus: complete
+    reports, every utterance's rows, a rerun that launches no kernel, both
+    kernels launched, every ``audio_str`` against a direct
+    ``encode_batch_mixed`` of the same decoded audio (>= 0.999 of frames,
+    each flip a near-tie), host stage seconds and RTF; TF32 off at every
+    conv1d, resample conv and transformer call in every thread; one
+    LibriSpeech utterance and one Common Voice clip against the CPU engine.
+    Returns the kernels' launches summed over the corpora and the shapes of
+    all."""
+    from tokenize_audio_tpu_torch import cli
+    from tokenize_audio_tpu_torch.config import EngineConfig
+    from tokenize_audio_tpu_torch.core.codes import chars_to_codes
+    from tokenize_audio_tpu_torch.datasets import emilia, librispeech, mls, parquet_corpus
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+    from tokenize_audio_tpu_torch.mimi import MimiConfig
+
+    if str(TESTS_DIR) not in sys.path:
+        sys.path.insert(0, str(TESTS_DIR))
+    t_phase = time.perf_counter()
+    modules = {"librispeech": librispeech, "parquet_corpus": parquet_corpus, "mls": mls,
+               "emilia": emilia}
+    corpora = corpus_inputs(tmp, np.random.default_rng(CORPUS_SEED))
+    input_seconds = time.perf_counter() - t_phase
+    real_params, memo = cli.random_params, {}
+
+    def random_params_once(cfg):
+        if cfg not in memo:
+            memo[cfg] = real_params(cfg)
+        return memo[cfg]
+
+    host = [(librispeech, "decode_audio", "host_decode"), (emilia, "decode_audio", "host_decode"),
+            (parquet_corpus, "_decode_embedded_audio", "host_decode"),
+            (mls, "_decode_embedded_audio", "host_decode")] + [
+        (m, "write_parquet", "parquet_write") for m in modules.values()]
+    rows_out, launches, timing, codes_check, reruns = {}, {}, {}, {}, {}
+    cli.random_params = random_params_once
+    try:
+        with KernelSpy(active=False) as kernels, ThreadFlagSpy(torch) as flags, \
+                HostStages(host) as stages:
+            for name, spec in corpora.items():
+                # --- the checked runs: counts from 0, read just after
+                stages.take()
+                kernels.reset()
+                kernels.active = True
+                reports, engines, wall = [], [], 0.0
+                for mod, argv in spec["runs"]:
+                    if mod == "mls" and argv[0] == "stage2":
+                        batches = mls.create_batch_lists(str(spec["stage1"]))
+                        check(len(batches) == 1, f"mls batch lists {batches}")
+                        spec["pairs"].write_text("".join(f"{s} {b}\n" for s, b in batches[0]))
+                    report, engine, w = run_cli(torch, modules[mod], argv)
+                    reports.append(report)
+                    wall += w
+                    if engine is not None:
+                        engines.append(engine)
+                kernels.active = False
+                launches[name] = kernels.launches()
+                check(all(n > 0 for n in launches[name].values()),
+                      f"{name}: kernel launches {launches[name]}")
+                host_stages = stages.take()
+                audio_s = sum(e.stats.audio_seconds for e in engines)
+                eng_stages = collections.Counter()
+                for e in engines:
+                    eng_stages.update(e.stats.stage_seconds)
+                timing[name] = {"audio_seconds": audio_s, "wall_seconds": wall,
+                                "realtime_factor": audio_s / wall,
+                                "utterances": sum(e.stats.utterances for e in engines),
+                                "frames": sum(e.stats.frames for e in engines),
+                                "stage_seconds": {**host_stages, **dict(eng_stages)}}
+                check_reports(name, reports, spec)
+
+                # every utterance's rows, against a direct encode on the card
+                found, rows_out[name] = corpus_strings(name, spec)
+                want_ids = set(spec["audio"]) - {EMILIA_CORRUPT}
+                check(set(found) == want_ids, f"{name}: outputs for {len(found)} of "
+                                              f"{len(want_ids)} utterances")
+                engine = engines[0]
+                frames = equal = 0
+                margins = []
+                for uid in sorted(found):
+                    audio, sr = spec["audio"][uid]
+                    if name == "emilia":
+                        audio, sr = engine.prepare_audio(audio, sr), SR
+                    want, emb = direct_codes(torch, engine, audio, sr)
+                    for s in found[uid]:
+                        got = np.asarray(chars_to_codes(s, 8, 2048, return_tensors="np",
+                                                        unicode_offset=0xE000))
+                        check(got.shape == want.shape, f"{name} {uid}: {got.shape} vs {want.shape}")
+                        same = (got == want).all(axis=0)
+                        frames, equal = frames + same.size, equal + int(same.sum())
+                        if not same.all():
+                            m = flip_margins(torch, engine.params["rvq"], emb, got, want)
+                            margins += [abs(x) for x in m] if m is not None else [float("nan")]
+                    del emb
+                check(equal >= 0.999 * frames, f"{name}: {equal} of {frames} frames equal a "
+                                               "direct encode_batch_mixed")
+                check(all(x < 1e-6 for x in margins), f"{name}: flips not near-ties: {margins}")
+                codes_check[name] = {"frames": frames, "frames_equal": equal,
+                                     "flip_rel_margins": margins}
+
+                # --- a rerun of each command line: skipped, no kernel launched
+                kernels.reset()
+                again = [run_cli(torch, modules[mod], argv)[0] for mod, argv in spec["runs"]]
+                reruns[name] = {"reports": again, "launches": kernels.launches()}
+                check(not any(reruns[name]["launches"].values()),
+                      f"{name}: the rerun launched kernels: {reruns[name]['launches']}")
+                check_rerun(name, again)
+                del engines, engine
+        tf32 = flags.summary()
+    finally:
+        cli.random_params = real_params
+    check(sum(kernels.shapes.values()) == sum(n["resblock_elu"] for n in launches.values())
+          and sum(kernels.rvq_shapes.values()) == sum(n["rvq_quantize"] for n in launches.values()),
+          f"corpora shapes vs launches {launches}")
+    check(all(row["tf32_on"] == 0 for row in tf32.values()), f"TF32 flags on in the corpora: {tf32}")
+    for key in ("transformer_apply_main_threads", "resample_conv1d_main_threads",
+                "resample_conv1d_other_threads"):
+        check(tf32.get(key, {}).get("calls", 0) > 0, f"no {key} in the corpora: {tf32}")
+
+    # one LibriSpeech utterance and one Common Voice clip on the CPU engine
+    [params] = memo.values()
+    cpu = MimiEncoderEngine(params, MimiConfig(), EngineConfig(), device="cpu")
+    card_vs_cpu = {}
+    for name in ("librispeech", "common_voice"):
+        spec = corpora[name]
+        uid = min(spec["audio"], key=lambda u: len(spec["audio"][u][0]))
+        found, _ = corpus_strings(name, spec)
+        [want] = cpu.encode_batch_mixed([spec["audio"][uid]])
+        got = np.asarray(chars_to_codes(found[uid][0], 8, 2048, return_tensors="np",
+                                        unicode_offset=0xE000))
+        e, n = frames_equal(got, want, f"{name} card vs CPU")
+        check(e >= 0.999 * n, f"{name} {uid}: card vs CPU {e} of {n} frames")
+        audio, sr = spec["audio"][uid]
+        card_vs_cpu[name] = {"utterance": uid, "seconds": len(audio) / sr, "frames": n,
+                             "frames_equal": e}
+    del cpu
+    for name in corpora:
+        emit({"phase": "corpora", "corpus": name, "rows": rows_out[name],
+              "launches": launches[name], **timing[name], "vs_direct": codes_check[name],
+              "rerun": reruns[name]})
+    emit({"phase": "corpora_summary", "tf32_calls": tf32, "card_vs_cpu": card_vs_cpu,
+          "input_build_seconds": input_seconds,
+          "resblock_shapes": len(kernels.shapes), "rvq_shapes": len(kernels.rvq_shapes),
+          "phase_seconds": time.perf_counter() - t_phase})
+    total = {k: sum(n[k] for n in launches.values()) for k in ("rvq_quantize", "resblock_elu")}
+    return total, kernels.shapes, kernels.rvq_shapes
+
+
+def check_reports(name, reports, spec):
+    """Each checked run's report says it processed everything, failing
+    nothing but the corrupt Emilia member put there on purpose."""
+    n = len(spec["audio"])
+    if name == "librispeech":
+        train, dev = (r["report"] for r in reports)
+        ok = (train["processed"], train["failed"], dev["processed"], dev["failed"]) == (2, 0, 1, 0)
+        ok = ok and [r["engine"]["utterances"] for r in reports] == [n, LS_DEVTEST]
+    elif name == "common_voice":
+        ok = reports == [[{"shard": "train-00000", "status": "processed", "rows": 2 * n}]]
+    elif name == "libritts_r":
+        spk, chap, per = LTTS_GROUPS
+        ok = reports == [[{"shard": "train-00000", "status": "processed",
+                           "rows": spk * chap * (per - 1)}]]
+    elif name == "mls":
+        s1, s2 = reports
+        ok = (s1["processed_count"], s1["last_processed_index"]) == (n, n - 1)
+        s, b, per = MLS_LAYOUT
+        # a 1 s gap after every third utterance: two segments per book
+        ok = ok and s2 == {"batch": "batch_000", "status": "processed", "entries": n,
+                           "docs": s * b * 2 * 2}
+    else:
+        std, conv = reports
+        ok = all(r["status"] == "processed" and r["failed_files"] == [EMILIA_CORRUPT]
+                 for r in reports)
+        ok = ok and (std["rows"], conv["rows"]) == (2 * EMILIA_SPEAKERS, EMILIA_SPEAKERS)
+    check(ok, f"{name} reports {reports}")
+
+
+def check_rerun(name, reports):
+    """Each rerun skipped its work (MLS stage 1: its progress ledger says
+    every entry is done)."""
+    if name == "librispeech":
+        ok = [(r["report"]["processed"], r["report"]["skipped"]) for r in reports] == [(0, 2), (0, 1)]
+    elif name in ("common_voice", "libritts_r"):
+        ok = reports == [[{"shard": "train-00000", "status": "skipped"}]]
+    elif name == "mls":
+        s, b, per = MLS_LAYOUT
+        ok = reports[0]["processed_count"] == s * b * per and reports[1]["status"] == "skipped"
+    else:
+        ok = all(r == {"shard": EMILIA_SHARD, "status": "skipped"} for r in reports)
+    check(ok, f"{name} rerun reports {reports}")
+
+
 def start_extra_build(name: str, src: str, entry: str, argtypes):
     """Start ``nvcc`` on another version of a kernel's source into
     ``lib<name>.so``; returns a function that waits for it and returns its
@@ -1534,6 +1999,7 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path"):
     from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
     from tokenize_audio_tpu_torch.ops.cuda import seanet
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     cfg = MimiConfig()
     params = random_params(cfg, seed=SEED)
@@ -1603,7 +2069,8 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path"):
     total = {k: sum(p[k] for p in per_c.values())
              for k in per_c[min(per_c)] if k == "launches" or k.endswith("ms")}
     summary = {"per_C": per_c, "total": total, "max_abs_err": max(r["max_abs_err"] for r in rows),
-               "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed"}
+               "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed",
+               "seconds": time.perf_counter() - t0}
     emit({"phase": "replay", "path": path, **summary})
     return summary
 
@@ -1624,6 +2091,7 @@ def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras, path="main_
     from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
     from tokenize_audio_tpu_torch.ops.cuda import rvq
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     params = random_params(MimiConfig(), seed=SEED)
     heads = {h: torch.from_numpy(params["rvq"][h]["embed"]).to(dev)
@@ -1662,7 +2130,8 @@ def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras, path="main_
     total["code_match"] = sum(r["count"] * r["N"] * r["K"] * r["code_match"] for r in rows) / codes
     check(total["code_match"] >= 0.999, f"rvq {path}: code match {total['code_match']} < 0.999")
     summary = {"total": total, "per_shape": rows,
-               "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed"}
+               "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed",
+               "seconds": time.perf_counter() - t0}
     emit({"phase": "rvq_replay", "path": path, **summary})
     return summary
 
@@ -1760,12 +2229,16 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
             bench_launches, bench_shapes, bench_rvq_shapes = timed(
                 "bench", phase_bench, torch, tmp, smi)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_corpora_") as tmp:
+            corpora_launches, corpus_shapes, corpus_rvq_shapes = timed(
+                "corpora", phase_corpora, torch, tmp)
         for r in records:
             r["launches"] = launches[r["name"]]
             r["stream_launches"] = stream_launches[r["name"]]
             r["yodas2_launches"] = yodas2_launches[r["name"]]
             r["codec_launches"] = codec_launches[r["name"]]
             r["bench_launches"] = bench_launches[r["name"]]
+            r["corpora_launches"] = corpora_launches[r["name"]]
         t = time.perf_counter()
         rb = next(r for r in records if r["name"] == "resblock_elu")
         rb["main_path"] = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
@@ -1773,13 +2246,16 @@ def main(argv=None) -> int:
                                          path="yodas2_path")
         rb["bench_path"] = phase_replay(torch, bench_shapes, peak_flops, peak_bw, {},
                                         path="bench_path")
+        rb["corpus_path"] = phase_replay(torch, corpus_shapes, peak_flops, peak_bw, {},
+                                         path="corpus_path")
         times["replay"] = time.perf_counter() - t
         t = time.perf_counter()
         rq = next(r for r in records if r["name"] == "rvq_quantize")
         for path, found, ext in (("main_path", rvq_shapes, rvq_extras),
                                  ("stream_path", stream_rvq_shapes, {}),
                                  ("yodas2_path", yodas2_rvq_shapes, {}),
-                                 ("bench_path", bench_rvq_shapes, {})):
+                                 ("bench_path", bench_rvq_shapes, {}),
+                                 ("corpus_path", corpus_rvq_shapes, {})):
             rq[path] = phase_rvq_replay(torch, found, peak_flops, peak_bw, ext, path=path)["total"]
         times["rvq_replay"] = time.perf_counter() - t
         timed("tie", phase_tie, torch)

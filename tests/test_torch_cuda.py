@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_corpora import audio_cell, tone_pcm
 from torch_yodas2_mirror import Entry, noise_pcm, write_mirror
 from tokenize_audio_tpu_torch import benchmark
 from tokenize_audio_tpu_torch.config import EngineConfig, ieee_fp32
 from tokenize_audio_tpu_torch.core.audio import resample, resample_many
-from tokenize_audio_tpu_torch.datasets import yodas2
+from tokenize_audio_tpu_torch.core.codes import chars_to_codes
+from tokenize_audio_tpu_torch.datasets import parquet_corpus, yodas2
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
 from tokenize_audio_tpu_torch.hub import LocalHub
 from tokenize_audio_tpu_torch.mimi import (
@@ -410,3 +412,28 @@ def test_decode_on_card_equals_cpu(cuda, monkeypatch):
     assert got.shape == want.shape == (2, 7 * 1920)
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, atol=3e-4 * scale, rtol=1e-3)
+
+
+def test_parquet_corpus_48k_on_card_equals_cpu(cuda):
+    """``parquet_corpus.encode_samples`` on Common Voice rows of 48 kHz
+    ``{'bytes': WAV}`` cells (int16, resampled inside the encode) on the
+    card, both kernels launched, against the CPU engine: no batch skipped
+    and the codes equal on at least 99 % of entries."""
+    params = random_params(TINY, seed=7)
+    ecfg = EngineConfig(batch_size=4, min_bucket_seconds=0.25, max_chunk_seconds=2.0)
+    rng = np.random.default_rng(13)
+    rows = [{"id": f"cv{i}", "sentence": f"phrase {i}", "client_id": "c",
+             "audio": audio_cell(tone_pcm(rng, 0.5 + 0.3 * i, 48_000), 48_000, "wav")}
+            for i in range(6)]
+    spec = parquet_corpus.SPECS["common_voice"]
+    r0, s0 = rvq.rvq_quantize.launches, seanet.resblock_elu.launches
+    got = parquet_corpus.encode_samples(rows, spec, MimiEncoderEngine(params, TINY, ecfg))
+    assert rvq.rvq_quantize.launches > r0 and seanet.resblock_elu.launches > s0
+    want = parquet_corpus.encode_samples(
+        rows, spec, MimiEncoderEngine(params, TINY, ecfg, device="cpu"))
+    assert [s["id"] for s in got] == [s["id"] for s in want] == [f"cv{i}" for i in range(6)]
+    codes = [[np.asarray(chars_to_codes(s["audio_str"], 8, 2048, return_tensors="np",
+                                        unicode_offset=0xE000)) for s in ss]
+             for ss in (got, want)]
+    same = np.concatenate([(g == w).reshape(-1) for g, w in zip(*codes)])
+    assert same.mean() >= 0.99, same.mean()

@@ -56,6 +56,34 @@ the run (non-zero exit, no final result line) if its check fails:
                 real-time factors, a profiled run's device breakdown, and a
                 16 -> 24 kHz resample on the card against the CPU with TF32
                 switched on by the caller;
+  6b. modes   — the engine's precision modes, drains, probes and retry at
+                full width, 32 codebooks, kernel backends, on the main
+                sub-shard: parity, matmul_precision="high" (TF32) and
+                compute_dtype="bfloat16", each with both kernels' launches
+                (bf16: the RVQ kernel only, the resblock kernel being
+                float32-only), the TF32 flags at every conv1d, linear and
+                matmul by launch site and thread against the sites' modes
+                (resample, quantizer in_proj, RVQ and the fused stage's
+                down-conv IEEE; the other SEANet convs, transformer and
+                downsample TF32 under "high"), code match against parity
+                per book and per frame (> 0.4 of codes, the CPU tests'
+                bar) and
+                interleaved RTF; a parity and a TF32 engine at once in two
+                threads (parity codes bit-equal to its run alone); a 75 s
+                utterance streamed by a bf16 engine (equal to the float32
+                engine's); fifo, ready and threaded drains (bit-equal, equal
+                frame counters, RTF); autotune_transfer,
+                autotune_pipeline_depth, autotune_drain_policy and a
+                request_autotune first batch (picks kept, codes = parity);
+                one injected OutOfMemoryError at dispatch, collect and
+                stream and one AcceleratorError (each retried once, codes
+                equal) and a build failure (raised, not retried); the YODAS2
+                CLI on the ``yodas2`` mirror with ``--fast --drain-policy
+                threaded --code-transfer-format auto-data`` and with
+                ``--precision high --pipeline-depth auto --drain-policy auto
+                --autotune-seconds 5`` (complete, launches, flags in every
+                thread, code match against the parity run, whose hub stays
+                as it was);
   7. codec    — MimiCodec at full width (8 codebooks) on the card:
                 audio_to_str -> str_to_audio at 24 and 16 kHz (both kernels
                 launched by the encode), a 32-book decode against the CPU's
@@ -913,7 +941,7 @@ def phase_yodas2(torch, tmp):
     chunks), a run with ``--long-audio-policy stream`` (chunks up to 60 s
     equal to the checked run's, the longer one against a one-shot encode)
     and a profiled run. Returns the kernels' launch counts and shapes of the
-    checked run."""
+    checked run, and the mirror's root and the checked run's hub."""
     if str(TESTS_DIR) not in sys.path:
         sys.path.insert(0, str(TESTS_DIR))
     from torch_yodas2_mirror import write_mirror
@@ -1018,7 +1046,7 @@ def phase_yodas2(torch, tmp):
         "stream_run": stream_run,
     })
     emit({"phase": "yodas2_profile", **profile})
-    return launches, shapes, rvq_shapes
+    return launches, shapes, rvq_shapes, {"root": root, "hub": hub}
 
 
 def yodas2_stream_run(torch, root, tmp, captured, split_codes, ids, segments, params, cfg):
@@ -1058,6 +1086,359 @@ def yodas2_stream_run(torch, root, tmp, captured, split_codes, ids, segments, pa
             "launches": launches, "frames_up_to_60s": short_frames,
             "frames_up_to_60s_equal_split": short_equal, "long_frames": long_frames,
             "long_frames_equal_one_shot": long_equal, "flip_rel_margins": margins}
+
+
+# Launch sites of an encode and the fp32 mode the JAX package gives each
+# under matmul_precision="high": the nearest enclosing function of a conv or
+# matmul launch names its site. IEEE in every mode: the resample
+# (core/audio.py:143 of the JAX package), the fused stage's down-conv
+# (ops/pallas/seanet.py:177-178), the quantizer in_proj and the RVQ
+# (mimi/model.py:331, 365, 370); the rest follows matmul_precision.
+IEEE_SITES = ("_resample_batch", "resblock_elu_reference", "seanet_stage", "split_rvq_encode",
+              "rvq_quantize_reference")
+TF32_SITES = ("seanet_encode", "transformer_apply", "_encode", "_stream_step",
+              "_transformer_step")
+MODES = {"parity": {}, "tf32": {"matmul_precision": "high"},
+         "bf16": {"compute_dtype": "bfloat16"}}
+MODES_AB_PAIRS = 4
+MODES_PROBE = dict(seconds=30.0, rounds=2)  # per autotune probe
+MODES_STREAM_SECONDS = 75.0
+# A broken mode scrambles codes wholesale (chance is 1/2048 per code). The
+# floor is the CPU tests' bar for bf16 against parity (> 0.4 of codes,
+# tests/test_torch_modes.py, as the JAX package's test_mimi_parity.py),
+# held in every mode; the rates themselves are reported, not gated.
+MODES_CODE_FLOOR = 0.4
+
+
+def site_of(frame):
+    while frame is not None:
+        name = frame.f_code.co_name
+        if name in IEEE_SITES:
+            return name, "ieee"
+        if name in TF32_SITES:
+            return name, "tf32"
+        frame = frame.f_back
+    return None, None
+
+
+class SiteFlagSpy:
+    """Both TF32 flags at every F.conv1d, F.linear and torch.matmul call,
+    with the caller's thread and launch site (``site_of``)."""
+
+    def __init__(self, torch):
+        import torch.nn.functional as F
+
+        self.torch = torch
+        self.targets = [(F, "conv1d"), (F, "linear"), (torch, "matmul")]
+        self.orig = [getattr(m, a) for m, a in self.targets]
+        self.calls = []  # (thread name, site, site mode, cudnn flag, matmul flag)
+
+    def _wrap(self, fn):
+        torch = self.torch
+
+        def spy(*args, **kwargs):
+            site, mode = site_of(sys._getframe(1))
+            self.calls.append((threading.current_thread().name, site, mode,
+                               torch.backends.cudnn.allow_tf32,
+                               torch.backends.cuda.matmul.allow_tf32))
+            return fn(*args, **kwargs)
+
+        return spy
+
+    def __enter__(self):
+        for (m, a), fn in zip(self.targets, self.orig):
+            setattr(m, a, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), fn in zip(self.targets, self.orig):
+            setattr(m, a, fn)
+
+    def check(self, what, precision, threads=None):
+        """Fails unless every call (of ``threads``, by name; all when None)
+        saw its site's flags for an engine at ``precision`` ("ieee" or
+        "tf32"); returns {site: {"calls", "tf32_on", "threads"}}."""
+        out = {}
+        for thread, site, mode, cudnn, matmul in self.calls:
+            if threads is not None and thread not in threads:
+                continue
+            check(site is not None, f"{what}: a conv/matmul launch outside every known site")
+            want = mode == "tf32" and precision == "tf32"
+            check(cudnn == matmul == want,
+                  f"{what}: {site} ({mode}) in {thread} saw TF32 flags {(cudnn, matmul)}")
+            row = out.setdefault(site, {"calls": 0, "tf32_on": 0, "threads": []})
+            row["calls"] += 1
+            row["tf32_on"] += int(cudnn)
+            if thread not in row["threads"]:
+                row["threads"].append(thread)
+        return out
+
+
+def match_vs(codes, ref):
+    """Per-book code match and whole-frame match of (K, frames) code lists."""
+    same = np.concatenate([(a == b) for a, b in zip(codes, ref)], axis=1)
+    return {"per_book": [float(x) for x in same.mean(axis=1)],
+            "codes": float(same.mean()), "frames": float(same.all(axis=0).mean())}
+
+
+def codes_equal(got, want, what):
+    check(len(got) == len(want), f"{what}: {len(got)} code arrays vs {len(want)}")
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and np.array_equal(g, w), f"{what}: codes differ")
+
+
+def phase_modes(torch, tmp, mirror):
+    """The engine's modes at full kyutai/mimi width (random weights, seed
+    0), 32 codebooks, kernel backends, on the main phase's sub-shard:
+    parity, matmul_precision="high" (TF32) and compute_dtype="bfloat16"
+    with their launches, TF32 flags per launch site (and four 16 kHz
+    utterances, for the fused resample), code match against parity and
+    interleaved RTF; a parity and a TF32 engine at once in two threads; a
+    75 s utterance streamed by a bf16 engine; the fifo, ready and threaded
+    drains; the three probes and request_autotune; one injected fault at
+    each retry site and a build failure; the YODAS2 CLI with --fast and
+    with --precision high and the auto probes, on the ``yodas2`` phase's
+    mirror. Returns each mode's kernel launches on the sub-shard."""
+    from tokenize_audio_tpu_torch import cli
+    from tokenize_audio_tpu_torch.config import EngineConfig
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine, encoder
+    from tokenize_audio_tpu_torch.mimi import MimiConfig, params_to_torch, random_params
+    from tokenize_audio_tpu_torch.mimi.streaming import StreamingMimiEncoder
+
+    host_params = random_params(MimiConfig(), seed=SEED)
+    params = params_to_torch(host_params)
+    audios = make_subshard(np.random.default_rng(SEED + 1))
+    audio_seconds = sum(len(a) for a in audios) / SR
+    out = {"utterances": len(audios), "audio_seconds": audio_seconds}
+
+    def make(mode="parity", **ecfg):
+        cfg = MimiConfig(**MODES[mode])
+        return MimiEncoderEngine(params, cfg, EngineConfig(**ecfg), num_codebooks=32)
+
+    # four 16 kHz utterances: the resample fused into the encode
+    rng16 = np.random.default_rng(SEED + 22)
+    audios16 = [tone_pcm(rng16, float(rng16.uniform(3, 20)), 16_000) for _ in range(4)]
+    # each mode once under the spies, then interleaved RTF rounds
+    engines, codes, launches, sites = {}, {}, {}, {}
+    for mode in MODES:
+        engines[mode] = eng = make(mode)
+        eng.encode_batch(audios[:4], sr=SR)  # first-use set-up, not counted
+        torch.cuda.synchronize()
+        with SiteFlagSpy(torch) as spy:
+            with KernelSpy(active=False) as kernels:
+                codes[mode] = eng.encode_batch(audios, sr=SR, defer=True)()
+                torch.cuda.synchronize()
+                launches[mode] = kernels.launches()
+            eng.encode_batch(audios16, sr=16_000)
+        sites[mode] = spy.check(mode, "tf32" if mode == "tf32" else "ieee")
+    check(all(n > 0 for n in launches["parity"].values())
+          and all(n > 0 for n in launches["tf32"].values()),
+          f"parity and TF32 launch both kernels: {launches}")
+    check(launches["bf16"]["resblock_elu"] == 0 and launches["bf16"]["rvq_quantize"] > 0,
+          f"bf16 launches the RVQ kernel and not the (f32-only) resblock: {launches['bf16']}")
+    check({"_resample_batch", "seanet_stage", "split_rvq_encode", "seanet_encode",
+           "transformer_apply", "_encode"} <= set(sites["tf32"]),
+          f"TF32 mode's launch sites: {sorted(sites['tf32'])}")
+    check("seanet_stage" not in sites["bf16"], "bf16 ran the fused stage")
+    ab = interleaved_rtf(torch, engines, audios, audio_seconds, pairs=MODES_AB_PAIRS)
+    for mode in MODES:
+        m = match_vs(codes[mode], codes["parity"])
+        check(m["codes"] > MODES_CODE_FLOOR, f"{mode}: code match {m['codes']} vs parity")
+        out[mode] = {"median_rtf": ab["median_rtf"][mode], "rtf_runs": ab["rtf_runs"][mode],
+                     "launches": launches[mode], "vs_parity": m, "sites": sites[mode]}
+    check(out["parity"]["vs_parity"]["codes"] == 1.0, "parity vs itself")
+
+    # a parity engine and a TF32 engine at once, in two threads
+    other = make_subshard(np.random.default_rng(SEED + 20))
+    want_other = engines["tf32"].encode_batch(other, sr=SR)
+    got, errors = {}, []
+
+    def run(name, eng, batch):
+        try:
+            got[name] = eng.encode_batch(batch, sr=SR)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    with SiteFlagSpy(torch) as spy:
+        threads = [threading.Thread(target=run, args=("parity", engines["parity"], audios),
+                                    name="parity"),
+                   threading.Thread(target=run, args=("tf32", engines["tf32"], other),
+                                    name="tf32")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+    check(not any(t.is_alive() for t in threads) and not errors, f"concurrent run: {errors}")
+    codes_equal(got["parity"], codes["parity"], "parity beside a TF32 engine")
+    conc_sites = {"parity": spy.check("concurrent parity", "ieee", {"parity"}),
+                  "tf32": spy.check("concurrent tf32", "tf32", {"tf32"})}
+    check(conc_sites["tf32"].get("transformer_apply", {}).get("tf32_on", 0) > 0,
+          "the concurrent TF32 engine ran no TF32 transformer")
+    out["concurrent"] = {"sites": conc_sites, "tf32_vs_tf32_alone": match_vs(got["tf32"],
+                                                                             want_other)}
+
+    # a > 60 s utterance streamed by a bf16 engine: float32 stream codes
+    long = [tone_pcm(np.random.default_rng(SEED + 21), MODES_STREAM_SECONDS)]
+    stream_codes = {}
+    for mode in ("parity", "bf16"):
+        eng = make(mode, long_audio_policy="stream")
+        stream_codes[mode] = eng.encode_batch(long, sr=SR)
+        check(eng.stats.stage_seconds.get("stream", 0) > 0, f"{mode}: nothing streamed")
+    codes_equal(stream_codes["bf16"], stream_codes["parity"], "bf16 engine's stream codes")
+    out["stream"] = {"seconds": MODES_STREAM_SECONDS, "frames": int(stream_codes["bf16"][0].shape[1])}
+
+    # the drains on the same batch list
+    drains = {p: make(drain_policy=p) for p in ("fifo", "ready", "threaded")}
+    drain_codes = {p: e.encode_batch(audios, sr=SR) for p, e in drains.items()}
+    for p in ("ready", "threaded"):
+        codes_equal(drain_codes[p], drain_codes["fifo"], f"{p} drain vs fifo")
+        check(drains[p].stats.frames == drains["fifo"].stats.frames
+              and drains[p].stats.padded_frames == drains["fifo"].stats.padded_frames,
+              f"{p} drain frame counters")
+    codes_equal(drain_codes["fifo"], codes["parity"], "fifo drain vs the parity run")
+    out["drains"] = interleaved_rtf(torch, drains, audios, audio_seconds, pairs=MODES_AB_PAIRS)
+
+    # the probes, each leaving the engine in its pick
+    eng = make()
+    t0 = time.perf_counter()
+    picks = {"transfer": eng.autotune_transfer(**MODES_PROBE),
+             "depth": eng.autotune_pipeline_depth(**MODES_PROBE),
+             "drain": eng.autotune_drain_policy(**MODES_PROBE)}
+    probe_seconds = time.perf_counter() - t0
+    check((eng.engine_cfg.code_transfer_format, eng.pipeline_depth, eng.engine_cfg.drain_policy)
+          == (picks["transfer"], picks["depth"], picks["drain"]),
+          f"engine not left in its picks {picks}")
+    check((eng._fetch_pool is None) == (picks["drain"] != "threaded"), "idle fetch pool")
+    deferred = make()
+    deferred.request_autotune(transfer=True, depth=True, **MODES_PROBE)
+    codes_equal(deferred.encode_batch(audios, sr=SR), codes["parity"],
+                "request_autotune's first batch vs parity")
+    check(deferred._pending_autotune is None and deferred.last_autotune
+          and deferred.last_autotune_depth, "request_autotune did not probe")
+    out["autotune"] = {"picks": picks, "medians": {"transfer": eng.last_autotune,
+                       "depth": {str(k): v for k, v in eng.last_autotune_depth.items()},
+                       "drain": eng.last_autotune_drain}, "seconds": probe_seconds,
+                       "deferred_picks": {"transfer": deferred.engine_cfg.code_transfer_format,
+                                          "depth": deferred.pipeline_depth},
+                       "deferred_medians": {"transfer": deferred.last_autotune,
+                                            "depth": {str(k): v for k, v in
+                                                      deferred.last_autotune_depth.items()}}}
+
+    # one injected fault at each retry site; a build failure is not retried
+    eng = make(long_audio_policy="stream")
+    batch = audios[:6] + long
+    want = eng.encode_batch(batch, sr=SR)
+
+    def once(exc):
+        left = {"n": 1}
+
+        def wrap(fn):
+            def call(*a, **k):
+                if left["n"]:
+                    left["n"] -= 1
+                    raise exc()
+                return fn(*a, **k)
+            return call
+        return wrap
+
+    oom = once(lambda: torch.OutOfMemoryError("injected: CUDA out of memory"))
+    retries = {}
+    for site, (obj, attr, wrap) in {
+        "dispatch": (encoder, "mimi_encode", oom),
+        "collect": (eng, "_collect", once(lambda: torch.OutOfMemoryError("injected"))),
+        "stream": (StreamingMimiEncoder, "encode_streams",
+                   once(lambda: torch.OutOfMemoryError("injected"))),
+        "accelerator_error": (encoder, "mimi_encode",
+                              once(lambda: torch.AcceleratorError("injected"))),
+    }.items():
+        orig = getattr(obj, attr)
+        setattr(obj, attr, wrap(orig))
+        try:
+            before = eng.stats.transient_retries
+            codes_equal(eng.encode_batch(batch, sr=SR), want, f"retry at {site}")
+            retries[site] = eng.stats.transient_retries - before
+        finally:
+            if obj is eng:
+                del eng._collect
+            else:
+                setattr(obj, attr, orig)
+    check(all(n == 1 for n in retries.values()), f"retries counted per site: {retries}")
+    orig = encoder.mimi_encode
+    encoder.mimi_encode = once(lambda: RuntimeError("injected: nvcc failed to build rvq.cu"))(orig)
+    try:
+        before = eng.stats.transient_retries
+        try:
+            eng.encode_batch(batch, sr=SR)
+            check(False, "a build failure was swallowed")
+        except RuntimeError as e:
+            check("nvcc" in str(e), f"not the build failure: {e!r}")
+        check(eng.stats.transient_retries == before, "a build failure was retried")
+    finally:
+        encoder.mimi_encode = orig
+    codes_equal(eng.encode_batch(batch, sr=SR), want, "after the build failure")
+    out["retries"] = retries
+
+    # the YODAS2 CLI with the modes' flags (cli.random_params memoized)
+    real_params, memo = cli.random_params, {}
+
+    def random_params_once(cfg):
+        if cfg not in memo:
+            memo[cfg] = real_params(cfg)
+        return memo[cfg]
+
+    parity_hub = hub_codes(mirror["hub"])
+    runs, captured = {}, {}
+    cli.random_params = random_params_once
+    try:
+        for tag, flags, precision in (
+            ("fast", ["--fast", "--drain-policy", "threaded", "--code-transfer-format",
+                      "auto-data"], "ieee"),
+            ("high", ["--precision", "high", "--pipeline-depth", "auto", "--drain-policy",
+                      "auto", "--autotune-seconds", "5"], "tf32"),
+        ):
+            with SiteFlagSpy(torch) as spy, KernelSpy(active=False) as kernels:
+                report, hub, wall, _ = run_yodas2_cli(torch, mirror["root"], tmp, tag, captured,
+                                                      extra_args=flags)
+                n = kernels.launches()
+            e = captured.pop(tag)
+            got_hub = hub_codes(hub)
+            check(sorted(got_hub) == sorted(parity_hub), f"yodas2 {tag}: hub chunks differ")
+            runs[tag] = {
+                "report": report, "wall_seconds": wall,
+                "realtime_factor": e.stats.audio_seconds / wall, "launches": n,
+                "config": {"compute_dtype": e.cfg.compute_dtype,
+                           "matmul_precision": e.cfg.matmul_precision,
+                           "transfer": e.engine_cfg.code_transfer_format,
+                           "depth": e.pipeline_depth, "drain": e.engine_cfg.drain_policy},
+                "autotune": {"transfer": e.last_autotune,
+                             "depth": {str(k): v for k, v in e.last_autotune_depth.items()},
+                             "drain": e.last_autotune_drain},
+                "sites": spy.check(f"yodas2 {tag}", precision),
+                "vs_parity": match_vs([got_hub[c] for c in sorted(parity_hub)],
+                                      [parity_hub[c] for c in sorted(parity_hub)]),
+            }
+            del e
+    finally:
+        cli.random_params = real_params
+    check(runs["fast"]["config"]["compute_dtype"] == "bfloat16"
+          and runs["fast"]["config"]["drain"] == "threaded" and runs["fast"]["autotune"]["transfer"],
+          f"yodas2 --fast run config {runs['fast']['config']}")
+    check(runs["high"]["config"]["matmul_precision"] == "high"
+          and runs["high"]["autotune"]["depth"] and runs["high"]["autotune"]["drain"],
+          f"yodas2 --precision high run config {runs['high']['config']}")
+    check(runs["fast"]["launches"]["resblock_elu"] == 0
+          and runs["fast"]["launches"]["rvq_quantize"] > 0
+          and all(v > 0 for v in runs["high"]["launches"].values()),
+          f"yodas2 mode runs' launches: {[r['launches'] for r in runs.values()]}")
+    check(any(t != "MainThread" for row in runs["high"]["sites"].values() for t in row["threads"]),
+          "no launch in a prefetch thread during the --precision high run")
+    check(hub_codes(mirror["hub"]).keys() == parity_hub.keys()
+          and all(np.array_equal(hub_codes(mirror["hub"])[c], parity_hub[c]) for c in parity_hub),
+          "the parity run's hub changed")
+    out["yodas2"] = runs
+    emit({"phase": "modes", **out})
+    return {mode: launches[mode] for mode in MODES}
 
 
 STREAM_LONG_SECONDS = (61.0, 75.0, 120.0, 200.0, 300.0, 340.0)  # 340 s crosses the 320 s cut
@@ -2222,8 +2603,9 @@ def main(argv=None) -> int:
         launches, shapes, rvq_shapes = timed("main", phase_main, torch)
         stream_launches, stream_rvq_shapes = timed("stream", phase_stream, torch)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_yodas2_") as tmp:
-            yodas2_launches, yodas2_shapes, yodas2_rvq_shapes = timed(
+            yodas2_launches, yodas2_shapes, yodas2_rvq_shapes, mirror = timed(
                 "yodas2", phase_yodas2, torch, tmp)
+            modes_launches = timed("modes", phase_modes, torch, tmp, mirror)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_codec_") as tmp:
             codec_launches = timed("codec", phase_codec, torch, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
@@ -2239,6 +2621,7 @@ def main(argv=None) -> int:
             r["codec_launches"] = codec_launches[r["name"]]
             r["bench_launches"] = bench_launches[r["name"]]
             r["corpora_launches"] = corpora_launches[r["name"]]
+            r["modes_launches"] = {m: n[r["name"]] for m, n in modes_launches.items()}
         t = time.perf_counter()
         rb = next(r for r in records if r["name"] == "resblock_elu")
         rb["main_path"] = phase_replay(torch, shapes, peak_flops, peak_bw, extras)

@@ -1,8 +1,9 @@
 """PyTorch port, CLI: the shared engine flags (``add_engine_args``) reach the
 port's engine (``engine_from_args``) on the tiny config, the kernel backends
-are the default, unported features parse and then raise
-NotImplementedError, --long-audio-policy stream streams, and --warmup /
---profile-dir do what they say."""
+are the default, --fast, --precision high, the drains and the auto /
+auto-data probes run (mirroring tests/test_cli.py of the JAX package),
+--long-audio-policy stream streams, and --warmup / --profile-dir do what
+they say."""
 
 import argparse
 import dataclasses
@@ -23,6 +24,17 @@ from tokenize_audio_tpu_torch.mimi.weights import random_params
 TINY = MimiConfig(**{f.name: getattr(tiny_jax_config(), f.name)
                      for f in dataclasses.fields(MimiConfig)
                      if f.name not in ("rvq_backend", "seanet_backend")})
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run this module's many small CPU encodes on one torch thread: under
+    the parallel test runner the cores are shared by several workers, and
+    each tiny op's wait on its sibling threads costs more than the op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -74,13 +86,84 @@ def test_jax_backend_names_are_refused(parse, flag, value):
     ["--drain-policy", "auto"], ["--drain-policy", "ready"], ["--drain-policy", "threaded"],
 ])
 def test_unported_features_parse_then_raise(parse, monkeypatch, flags):
+    """Each of these flags, refused before its feature was ported, now
+    reaches the engine: the mode is set, or its probe runs (at startup for
+    'auto', on the first batch for 'auto-data'), after --warmup, and the
+    engine encodes."""
     warmed = []
     monkeypatch.setattr(MimiEncoderEngine, "warmup",
                         lambda self, sr=24_000, include_tails=False: warmed.append(sr) or 0)
-    args = parse(flags + ["--device", "cpu", "--warmup"])
-    with pytest.raises(NotImplementedError):
-        cli.engine_from_args(args)
-    assert warmed == []  # refused before any warmup work
+    args = parse(flags + ["--device", "cpu", "--warmup", "--autotune-seconds", "1",
+                          "--batch-size", "2", "--max-chunk-seconds", "2"])
+    eng = cli.engine_from_args(args)
+    assert warmed[:3] == [24_000, 16_000, 48_000]  # warmed before any probe
+    probed = {"--code-transfer-format": "last_autotune", "--pipeline-depth": "last_autotune_depth",
+              "--drain-policy": "last_autotune_drain"}.get(flags[0])
+    value = flags[-1]
+    if value == "auto":
+        assert getattr(eng, probed)
+    elif value == "auto-data":
+        assert eng._pending_autotune is not None and not getattr(eng, probed)
+    rng = np.random.default_rng(0)
+    codes = eng.encode_batch([(rng.standard_normal(5000) * 0.3).astype(np.float32)])
+    assert codes[0].shape == (8, 3)
+    if value == "auto-data":
+        assert eng._pending_autotune is None and getattr(eng, probed)
+    assert eng.cfg.compute_dtype == ("bfloat16" if flags == ["--fast"] else "float32")
+    assert eng.cfg.matmul_precision == ("high" if flags[0] == "--precision" else "highest")
+    if value in ("ready", "threaded"):
+        assert eng.engine_cfg.drain_policy == value
+
+
+def test_pipeline_depth_and_autodata_flag_plumbing(parse, monkeypatch):
+    """--pipeline-depth N reaches the engine; 'auto' runs the depth probe at
+    startup with --autotune-seconds; 'auto-data' + --code-transfer-format
+    auto-data defer both probes to the first real batch."""
+    assert cli.engine_from_args(parse(["--device", "cpu", "--pipeline-depth", "5"])
+                                ).pipeline_depth == 5
+    calls = {}
+    monkeypatch.setattr(MimiEncoderEngine, "autotune_pipeline_depth",
+                        lambda self, **kw: calls.setdefault("depth", kw) or 7)
+    monkeypatch.setattr(MimiEncoderEngine, "autotune_transfer",
+                        lambda self, **kw: calls.setdefault("transfer", kw) or "packed")
+    cli.engine_from_args(parse(["--device", "cpu", "--pipeline-depth", "auto",
+                                "--autotune-seconds", "2.5"]))
+    assert calls["depth"]["seconds"] == 2.5 and "transfer" not in calls
+    eng = cli.engine_from_args(parse(["--device", "cpu", "--pipeline-depth", "auto-data",
+                                      "--code-transfer-format", "auto-data"]))
+    pa = eng._pending_autotune
+    assert pa and pa["transfer"] and pa["depth"]
+
+
+def fake_tune(self, **kw):
+    self._set_transfer_format("padded")  # switch away from the default
+    return "padded"
+
+
+def test_warmup_reruns_after_autotune_format_switch(parse, monkeypatch):
+    """--warmup + --code-transfer-format auto: when the probe switches the
+    format, the lattices are warmed again for the chosen one."""
+    warmed = []
+    monkeypatch.setattr(MimiEncoderEngine, "warmup",
+                        lambda self, sr=24_000, include_tails=False: warmed.append(sr) or 0)
+    monkeypatch.setattr(MimiEncoderEngine, "autotune_transfer", fake_tune)
+    cli.engine_from_args(parse(["--device", "cpu", "--warmup", "--code-transfer-format", "auto"]))
+    assert warmed == [24_000, 16_000, 48_000] * 2
+
+
+def test_warmup_reruns_after_deferred_autodata_format_switch(parse, monkeypatch):
+    """--warmup + --code-transfer-format auto-data: the probe runs on the
+    first real batch, and when it switches formats there the lattices are
+    warmed again (request_autotune's on_complete)."""
+    warmed = []
+    monkeypatch.setattr(MimiEncoderEngine, "warmup",
+                        lambda self, sr=24_000, include_tails=False: warmed.append(sr) or 0)
+    monkeypatch.setattr(MimiEncoderEngine, "autotune_transfer", fake_tune)
+    eng = cli.engine_from_args(parse(["--device", "cpu", "--warmup", "--code-transfer-format",
+                                      "auto-data", "--batch-size", "2"]))
+    assert warmed == [24_000, 16_000, 48_000]
+    eng.encode_batch([(np.random.default_rng(1).standard_normal(6000) * 0.3).astype(np.float32)])
+    assert warmed == [24_000, 16_000, 48_000] * 2
 
 
 def test_long_audio_policy_stream_reaches_the_engine(parse):

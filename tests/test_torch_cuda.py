@@ -437,3 +437,101 @@ def test_parquet_corpus_48k_on_card_equals_cpu(cuda):
              for ss in (got, want)]
     same = np.concatenate([(g == w).reshape(-1) for g, w in zip(*codes)])
     assert same.mean() >= 0.99, same.mean()
+
+
+@pytest.mark.parametrize("mode,resblock", [({}, True), ({"matmul_precision": "high"}, True),
+                                           ({"compute_dtype": "bfloat16"}, False)])
+def test_modes_launch_their_kernels_on_card(cuda, mode, resblock):
+    """Parity and TF32 encodes launch both kernels; a bf16 encode launches
+    the RVQ kernel and not the resblock kernel (float32 only, as the JAX
+    package's Pallas stage), and still gives codes of the right shape."""
+    cfg = dataclasses.replace(TINY, **mode)
+    ecfg = EngineConfig(batch_size=4, min_bucket_seconds=0.5, max_chunk_seconds=2.0)
+    rng = np.random.default_rng(21)
+    audios = [(rng.standard_normal(n) * 8000).astype(np.int16) for n in (5000, 19_200, 30_000)]
+    engine = MimiEncoderEngine(random_params(TINY, seed=1), cfg, ecfg)
+    r0, s0 = rvq.rvq_quantize.launches, seanet.resblock_elu.launches
+    got = engine.encode_batch(audios)
+    assert rvq.rvq_quantize.launches > r0
+    assert (seanet.resblock_elu.launches > s0) == resblock
+    assert [g.shape for g in got] == [(8, -(-len(a) // 1920)) for a in audios]
+
+
+def test_parity_and_tf32_engines_at_once_on_card(cuda):
+    """A parity engine and a TF32 engine encode at once in two threads on
+    the card: the parity codes equal a parity-only run, and each thread's
+    TF32 flags at every conv1d / linear / matmul launch are its mode's at
+    that site (the resample, in_proj and the fused stage's down-conv IEEE in
+    both)."""
+    import sys
+    import threading
+
+    import torch.nn.functional as F
+
+    ieee = ("_resample_batch", "seanet_stage", "split_rvq_encode")
+    tf32 = ("seanet_encode", "transformer_apply", "_encode")
+
+    def site(frame):
+        while frame is not None:
+            if frame.f_code.co_name in ieee + tf32:
+                return frame.f_code.co_name
+            frame = frame.f_back
+        return None
+
+    params = random_params(TINY, seed=2)
+    ecfg = EngineConfig(batch_size=4, min_bucket_seconds=0.5, max_chunk_seconds=2.0)
+    rng = np.random.default_rng(22)
+    audios = [(rng.standard_normal(n) * 8000).astype(np.int16) for n in (5000, 19_200, 30_000)]
+    audios16 = [(rng.standard_normal(n) * 8000).astype(np.int16) for n in (9000, 20_000)]
+    parity = MimiEncoderEngine(params, TINY, ecfg)
+    fast = MimiEncoderEngine(params, dataclasses.replace(TINY, matmul_precision="high"), ecfg)
+    want = parity.encode_batch(audios) + parity.encode_batch(audios16, sr=16_000)
+    calls, real = [], {}
+    for mod, name in ((F, "conv1d"), (F, "linear"), (torch, "matmul")):
+        real[name] = fn = getattr(mod, name)
+
+        def spy(*a, _fn=fn, **k):
+            calls.append((threading.current_thread().name, site(sys._getframe(1)),
+                          torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+            return _fn(*a, **k)
+
+        setattr(mod, name, spy)
+    out = {}
+    try:
+        threads = [threading.Thread(
+            target=lambda n=n, e=e: out.setdefault(n, [e.encode_batch(audios) + e.encode_batch(
+                audios16, sr=16_000) for _ in range(3)]), name=n)
+            for n, e in (("parity", parity), ("tf32", fast))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+    finally:
+        F.conv1d, F.linear, torch.matmul = real["conv1d"], real["linear"], real["matmul"]
+    assert not any(t.is_alive() for t in threads) and set(out) == {"parity", "tf32"}
+    for run in out["parity"]:
+        for g, w in zip(run, want):
+            np.testing.assert_array_equal(g, w)
+    seen = set()
+    for thread, where, cudnn, matmul in calls:
+        assert where is not None, thread
+        on = thread == "tf32" and where in tf32
+        assert cudnn == matmul == on, (thread, where, cudnn, matmul)
+        seen.add((thread, where))
+    assert seen == {(t, s) for t in ("parity", "tf32") for s in ieee + tf32}, seen
+
+
+@pytest.mark.parametrize("policy", ["ready", "threaded"])
+def test_drains_on_card_equal_fifo(cuda, policy):
+    params = random_params(TINY, seed=4)
+    ecfg = EngineConfig(batch_size=2, min_bucket_seconds=0.25, max_chunk_seconds=2.0)
+    rng = np.random.default_rng(23)
+    audios = [(rng.standard_normal(n) * 8000).astype(np.int16)
+              for n in (1000, 5000, 19_200, 26_000, 7777, 600, 60_000, 3333)]
+    fifo = MimiEncoderEngine(params, TINY, ecfg, pipeline_depth=3)
+    other = MimiEncoderEngine(params, TINY, dataclasses.replace(ecfg, drain_policy=policy),
+                              pipeline_depth=3)
+    for g, w in zip(other.encode_batch(audios), fifo.encode_batch(audios)):
+        np.testing.assert_array_equal(g, w)
+    assert other.stats.frames == fifo.stats.frames

@@ -145,11 +145,16 @@ def test_int16_and_fused_16k_resample_equal_jax(oracle):
 
 
 def test_unported_modes_raise(oracle):
+    """The bf16 and TF32 modes, refused before they were ported, now encode
+    (tests/test_torch_modes.py holds them against JAX); a JAX backend name
+    still raises, and every mode leaves the TF32 flags as it found them."""
     _, _, _, params, cfg = oracle
     audio = torch.zeros((1, SPF))
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     for kw in ({"compute_dtype": "bfloat16"}, {"matmul_precision": "high"}):
-        with pytest.raises(NotImplementedError):
-            encode(params, dataclasses.replace(cfg, **kw), audio)
+        codes, _ = encode(params, dataclasses.replace(cfg, **kw), audio)
+        assert codes.shape == (1, 8, 1)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == before
     with pytest.raises(ValueError, match="rvq_backend"):
         encode(params, dataclasses.replace(cfg, rvq_backend="pallas"), audio)
     # the TF32 flags are restored after encode

@@ -55,16 +55,19 @@ def add_engine_args(ap: argparse.ArgumentParser, batch_size: int = 16) -> None:
     ap.add_argument(
         "--fast",
         action="store_true",
-        help="bfloat16 compute: not a parity mode, and not ported yet (the "
-        "engine raises NotImplementedError)",
+        help="bfloat16 compute (SEANet, transformer and downsample; RVQ and "
+        "streaming stay float32): NOT a parity mode, codes differ from "
+        "parity's (the fused resblock kernel, float32 only, gives way to "
+        "the plain convs)",
     )
     ap.add_argument(
         "--precision",
         default="highest",
         choices=["highest", "high"],
-        help="matmul precision: highest = IEEE fp32, bit-exact parity "
-        "(default); high is not ported yet (the engine raises "
-        "NotImplementedError)",
+        help="float32 conv/matmul precision: highest = IEEE fp32, bit-exact "
+        "parity (default); high = TF32 on the card for the SEANet convs, "
+        "transformer and downsample (resample, quantizer and RVQ stay IEEE) "
+        "— a throughput mode, not parity",
     )
     ap.add_argument(
         "--rvq-backend",
@@ -86,32 +89,35 @@ def add_engine_args(ap: argparse.ArgumentParser, batch_size: int = 16) -> None:
         choices=["padded", "packed", "compact", "auto", "auto-data"],
         help="device->host code wire format (default EngineConfig default; "
         "see config.py — 'compact' fetches only packed valid frames). "
-        "'auto' and 'auto-data' (probe the formats at startup or on the "
-        "first real batch) are not ported yet: the engine raises "
-        "NotImplementedError",
+        "'auto' probes packed vs padded on this machine with an "
+        "interleaved A/B at startup and keeps the fastest; 'auto-data' "
+        "defers the probe to the first real batch and times the shard's "
+        "own utterances instead of a synthetic workload",
     )
     ap.add_argument(
         "--pipeline-depth",
         default=None,
         type=_depth_arg,
         help="in-flight device batches (int >= 1; engine default 18). "
-        "'auto' and 'auto-data' (probe the depth) are not ported yet: the "
-        "engine raises NotImplementedError",
+        "'auto' probes {6,12,18} on a synthetic workload at startup; "
+        "'auto-data' probes on the first real batch",
     )
     ap.add_argument(
         "--drain-policy",
         default=None,
         choices=["fifo", "ready", "threaded", "auto"],
         help="in-flight batch collection order (default EngineConfig "
-        "default): fifo = dispatch order. ready, threaded and auto are not "
-        "ported yet: the engine raises NotImplementedError",
+        "default): fifo = dispatch order; ready = whichever batch's codes "
+        "reached the host first; threaded = a small fetch pool collects "
+        "them. Bit- and order-identical in every mode (pure transport "
+        "scheduling). 'auto' runs the interleaved probe at startup",
     )
     ap.add_argument(
         "--autotune-seconds",
         type=float,
         default=40.0,
-        help="with an auto/auto-data format or depth: seconds of audio "
-        "per probe pass",
+        help="with an auto/auto-data format, depth or drain: seconds of "
+        "audio per probe pass (smaller = faster startup, noisier pick)",
     )
     ap.add_argument(
         "--profile-dir",
@@ -197,22 +203,7 @@ def engine_from_args(
     if getattr(args, "profile_dir", None):
         _start_profiler(args.profile_dir)
 
-    # the format/depth/drain probes are not ported yet (ROADMAP queue A #12):
-    # each of these calls raises NotImplementedError, before any warmup
-    probe_s = getattr(args, "autotune_seconds", 40.0)
-    if fmt_arg == "auto":
-        engine.autotune_transfer(seconds=probe_s)
-    if depth_arg == "auto":
-        engine.autotune_pipeline_depth(seconds=probe_s)
-    if drain_arg == "auto":
-        engine.autotune_drain_policy(seconds=probe_s)
-    if "auto-data" in (fmt_arg, depth_arg):
-        engine.request_autotune(
-            transfer=fmt_arg == "auto-data",
-            depth=depth_arg == "auto-data",
-            seconds=probe_s,
-        )
-    if getattr(args, "warmup", False):
+    def run_warmup() -> None:
         # warm every standard corpus rate's lattice: 24 kHz (YODAS2/
         # Emilia/LibriTTS), 16 kHz (LibriSpeech/MLS — the fused-resample
         # SOURCE-rate lattice is a different set of batch shapes), 48 kHz
@@ -223,4 +214,37 @@ def engine_from_args(
             for sr in (24_000, 16_000, 48_000)
         )
         logger.info("warmed %d bucket batch shapes", n)
+
+    warmup = getattr(args, "warmup", False)
+    if warmup:
+        # warm BEFORE the probes, so the default format's first-use set-up
+        # never lands in a probe's timings
+        run_warmup()
+    probe_s = getattr(args, "autotune_seconds", 40.0)
+    if "auto" in (fmt_arg, depth_arg, drain_arg):
+        fmt_before = engine.engine_cfg.code_transfer_format
+        if fmt_arg == "auto":
+            engine.autotune_transfer(seconds=probe_s)
+        if depth_arg == "auto":
+            engine.autotune_pipeline_depth(seconds=probe_s)
+        if drain_arg == "auto":
+            engine.autotune_drain_policy(seconds=probe_s)
+        if warmup and engine.engine_cfg.code_transfer_format != fmt_before:
+            # the probe warmed only the chosen format's shapes for ITS
+            # durations; re-warm the full lattices for the chosen format
+            run_warmup()
+    if "auto-data" in (fmt_arg, depth_arg):
+        fmt_before_deferred = engine.engine_cfg.code_transfer_format
+
+        def rewarm_if_format_switched() -> None:
+            # the same contract for the probe on the first real batch
+            if warmup and engine.engine_cfg.code_transfer_format != fmt_before_deferred:
+                run_warmup()
+
+        engine.request_autotune(
+            transfer=fmt_arg == "auto-data",
+            depth=depth_arg == "auto-data",
+            seconds=probe_s,
+            on_complete=rewarm_if_format_switched,
+        )
     return engine

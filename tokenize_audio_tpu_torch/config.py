@@ -52,41 +52,128 @@ def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
     return dev
 
 
-_fp32_lock = threading.Lock()
-_fp32_holders = 0
-_fp32_saved: tuple = ()
+FP32_MODES = ("ieee", "tf32")
+
+
+def _set_tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+class _Fp32Hold:
+    """The process-wide hold behind ``fp32_precision``.
+
+    cuDNN and cuBLAS read the two TF32 flags when the host launches an op,
+    and the flags are global to the process, where the JAX package picks a
+    precision per op. So a region's flags must stay set for every launch
+    any thread makes while the region is open, and the hold covers only the
+    host-side launch sequence of the region: it never waits on the device.
+
+    - IEEE regions share the hold: any number of threads may be inside at
+      once (the engine encodes while decode-prefetch threads resample), all
+      seeing both flags False. The first to enter saves the flags, the last
+      to leave restores them.
+    - A TF32 region holds alone: it waits until no other thread holds, and
+      while it waits or holds, a thread opening an IEEE region waits (so a
+      stream of short IEEE regions cannot starve it).
+    - Within its own thread a TF32 holder may open regions of either mode
+      (an IEEE conv inside a TF32 encode): the flags switch for the inner
+      region and back after it, which no other thread can see, since none
+      holds. A thread in a shared IEEE region cannot open a TF32 one: other
+      threads may be launching under its flags.
+
+    A plain lock held for every region would do the same with one mode, but
+    would serialize the IEEE regions of the engine and its resample threads
+    for nothing."""
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.shared = 0  # threads inside an IEEE region (outermost)
+        self.owner: Optional[int] = None  # the thread holding a TF32 region
+        self.waiting = 0  # threads waiting to open a TF32 region
+        self.saved: tuple = ()
+        self.local = threading.local()
+
+    def _save(self) -> None:
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    def _restore(self) -> None:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+    def enter(self, mode: str) -> None:
+        stack = self.local.__dict__.setdefault("stack", [])
+        me = threading.get_ident()
+        if stack:
+            if mode != stack[-1]:
+                if self.owner != me:
+                    raise RuntimeError(
+                        "a TF32 region cannot open inside an IEEE region: other "
+                        "threads may share the IEEE flags"
+                    )
+                _set_tf32(mode == "tf32")
+            stack.append(mode)
+            return
+        with self.cond:
+            if mode == "ieee":
+                self.cond.wait_for(lambda: self.owner is None and self.waiting == 0)
+                if self.shared == 0:
+                    self._save()
+                    _set_tf32(False)
+                self.shared += 1
+            else:
+                self.waiting += 1
+                try:
+                    self.cond.wait_for(lambda: self.owner is None and self.shared == 0)
+                finally:
+                    self.waiting -= 1
+                self.owner = me
+                self._save()
+                _set_tf32(True)
+        stack.append(mode)
+
+    def leave(self) -> None:
+        stack = self.local.stack
+        mode = stack.pop()
+        if stack:
+            if stack[-1] != mode:
+                _set_tf32(stack[-1] == "tf32")
+            return
+        with self.cond:
+            if mode == "ieee":
+                self.shared -= 1
+                if self.shared == 0:
+                    self._restore()
+            else:
+                self.owner = None
+                self._restore()
+            self.cond.notify_all()
+
+
+_fp32_hold = _Fp32Hold()
 
 
 @contextlib.contextmanager
-def ieee_fp32():
-    """IEEE fp32 for cuDNN convolutions and cuBLAS matmuls (the counterpart
-    of JAX ``Precision.HIGHEST``): cuDNN convs default to TF32, which keeps
-    about three decimal digits and breaks code parity.
-
-    The two TF32 flags are process-wide, and decode-prefetch threads
-    resample while the main thread encodes, so entries are counted: the
-    first holder saves both flags and clears them, and only the last holder
-    to leave restores them. Both stay False while any thread is inside."""
-    global _fp32_holders, _fp32_saved
-    with _fp32_lock:
-        if _fp32_holders == 0:
-            _fp32_saved = (
-                torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32,
-            )
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-        _fp32_holders += 1
+def fp32_precision(mode: str):
+    """Run the enclosed launches with float32 convolutions and matmuls in
+    ``mode``: "ieee" (both TF32 flags False; the counterpart of JAX
+    ``Precision.HIGHEST``) or "tf32" (both True; what XLA gives
+    ``Precision.HIGH`` and ``DEFAULT`` on an NVIDIA GPU). Regions nest, and
+    are safe across threads (``_Fp32Hold``). On the CPU the flags change
+    nothing, as XLA:CPU ignores ``precision``."""
+    if mode not in FP32_MODES:
+        raise ValueError(f"fp32 precision mode {mode!r} not in {FP32_MODES}")
+    _fp32_hold.enter(mode)
     try:
         yield
     finally:
-        with _fp32_lock:
-            _fp32_holders -= 1
-            if _fp32_holders == 0:
-                (
-                    torch.backends.cudnn.allow_tf32,
-                    torch.backends.cuda.matmul.allow_tf32,
-                ) = _fp32_saved
+        _fp32_hold.leave()
+
+
+def ieee_fp32():
+    """IEEE fp32 for cuDNN convolutions and cuBLAS matmuls: cuDNN convs
+    default to TF32, which keeps about three decimal digits and breaks code
+    parity. Any number of threads may hold it at once."""
+    return fp32_precision("ieee")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,8 +256,9 @@ class EngineConfig:
     #               from host-known frame counts. Requires masked mode.
     code_transfer_format: str = "packed"
     # device->host collection order for in-flight batches: "fifo" (oldest
-    # first). "ready" and "threaded" are not ported yet (the port's engine
-    # raises NotImplementedError for them).
+    # first), "ready" (the first whose copy has landed, else the oldest) or
+    # "threaded" (a pool of fetch_threads collects them). Order and bits of
+    # the results are the same in every policy.
     drain_policy: str = "fifo"
     fetch_threads: int = 4
 

@@ -23,9 +23,13 @@ With ``long_audio_policy="stream"``, utterances over the cap are encoded
 exactly by the streaming encoder (``mimi/streaming.py``), up to
 ``stream_batch`` of them multiplexed through one carried state.
 
-Not ported yet: a device mesh / multi-GPU, the "ready"/"threaded" drains,
-autotuning and the bfloat16 / TF32 modes (each raises NotImplementedError
-when asked for), and transient-fault retry.
+Every mode of ``MimiConfig`` runs (bfloat16 compute, TF32 matmuls), every
+drain policy of ``EngineConfig`` ("fifo", "ready", "threaded"), the
+provisioning probes (``autotune_transfer``, ``autotune_pipeline_depth``,
+``autotune_drain_policy``, and ``request_autotune`` on the first real
+batch), and one retry of a transient device fault (``_retry_transient``).
+Not ported yet: a device mesh / multi-GPU (the constructor raises
+NotImplementedError for one).
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import List, Optional, Sequence
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,7 +56,7 @@ from tokenize_audio_tpu_torch.core.audio import (
 )
 from tokenize_audio_tpu_torch.engine.metrics import EngineStats
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
-from tokenize_audio_tpu_torch.mimi.model import _check_modes
+from tokenize_audio_tpu_torch.mimi.model import _check_modes, cast_for_compute
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
 from tokenize_audio_tpu_torch.mimi.streaming import StreamingMimiEncoder
 from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
@@ -58,6 +64,15 @@ from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
 from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
 
 logger = logging.getLogger(__name__)
+
+# Faults one retry can survive. A CUDA error is often sticky: it poisons the
+# context and every later call fails, so an AcceleratorError is retried only
+# when the device still runs a probe afterwards (_device_recovers). A failed
+# kernel build (ops/cuda/_build) or launch (the kernel wrappers) raises a
+# plain RuntimeError, which is never retried: it would fail the same way.
+_TRANSIENT = (torch.OutOfMemoryError,) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()
+)
 
 
 def _prune_for_encode(params, num_codebooks: int):
@@ -87,7 +102,9 @@ def _pack_for_kernel(params, cfg: MimiConfig):
     resblock kernel's layout, and each RVQ head its codebooks in the RVQ
     kernel's, as ``"packed"``: packed once, when the parameters reach the
     device, and passed to every launch."""
-    if cfg.seanet_backend == "kernel":
+    # the fused resblock kernel takes float32 only: bf16 mode runs the
+    # plain convs (as the JAX package's f32-only Pallas dispatch does)
+    if cfg.seanet_backend == "kernel" and cfg.compute_dtype == "float32":
         for block in params["blocks"]:
             res = block["res"][0]
             res["packed"] = pack_weights(res["c1"]["w"], res["c2"]["w"])
@@ -116,8 +133,13 @@ class MimiEncoderEngine:
         if mesh is not None:
             raise NotImplementedError("the port's engine runs on one device (no mesh)")
         self.pipeline_depth = pipeline_depth
+        self.last_autotune: dict = {}  # per-format median probe seconds
+        self.last_autotune_depth: dict = {}  # per-depth median probe seconds
+        self.last_autotune_drain: dict = {}  # per-policy median probe seconds
+        self._pending_autotune: Optional[dict] = None
+        self._fetch_pool: Optional[ThreadPoolExecutor] = None  # "threaded" drain
         self.cfg = cfg or MimiConfig()
-        # refuse unported precision modes now, not at the first encode
+        # refuse an unknown mode or backend now, not at the first encode
         _check_modes(self.cfg)
         self.engine_cfg = engine_cfg or EngineConfig()
         self.num_codebooks = num_codebooks or self.engine_cfg.num_codebooks
@@ -134,10 +156,6 @@ class MimiEncoderEngine:
         if self.engine_cfg.drain_policy not in ("fifo", "ready", "threaded"):
             raise ValueError(
                 f"unknown drain_policy {self.engine_cfg.drain_policy!r}"
-            )
-        if self.engine_cfg.drain_policy != "fifo":
-            raise NotImplementedError(
-                f"drain_policy {self.engine_cfg.drain_policy!r} is not ported; use 'fifo'"
             )
         if fmt != "padded" and self.num_codebooks % 2 != 0:
             if fmt == "compact":
@@ -163,10 +181,14 @@ class MimiEncoderEngine:
         # pruned params live on the device for the engine's lifetime: the
         # decoder stack and unused acoustic codebooks are ~half the
         # checkpoint and the encode path never reads them
-        self.params = _pack_for_kernel(
+        params = _pack_for_kernel(
             params_to_torch(_prune_for_encode(params, self.num_codebooks), self.device),
             self.cfg,
         )
+        # bf16 mode casts the conv/transformer weights once; the streaming
+        # encoders always run float32 and take the uncast tree
+        self._stream_params = params
+        self.params = cast_for_compute(params, self.cfg)
 
     # -- internals ---------------------------------------------------------
 
@@ -260,6 +282,43 @@ class MimiEncoderEngine:
             else:
                 host = codes
         return host, event, n_real, frames, bucket_frames
+
+    def _device_recovers(self, exc: BaseException) -> bool:
+        """Whether the device can take a retry after ``exc``: always after
+        an out-of-memory error (once the allocator's cached blocks are
+        released); after another CUDA error only if a synchronize and a
+        tiny op still run, which a sticky error fails."""
+        if isinstance(exc, torch.OutOfMemoryError):
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            return True
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            torch.ones(1, device=self.device).add_(1).cpu()
+        except RuntimeError:
+            return False
+        return True
+
+    def _retry_transient(self, what: str, attempt, recover=None):
+        """Run ``attempt()``, absorbing ONE transient device fault
+        (``_TRANSIENT``, where the device recovers).
+
+        Encode is stateless at every retry grain — params stay on the
+        device, inputs are host-owned numpy — so one retry (``recover()``,
+        defaulting to ``attempt()`` again) is exact and turns a would-be
+        shard-attempt abort into a counted ``transient_retries`` stat. A
+        persistent fault re-raises into the shard-level restart-resume
+        machinery."""
+        try:
+            return attempt()
+        except _TRANSIENT as e:
+            if not self._device_recovers(e):
+                raise
+            logger.warning("transient device fault %s; retrying once: %s", what, e)
+            with self.stats._lock:  # the threaded drain retries concurrently
+                self.stats.transient_retries += 1
+            return (recover or attempt)()
 
     def _collect(self, handle) -> List[np.ndarray]:
         """Wait for an in-flight batch and trim per-row codes."""
@@ -372,6 +431,23 @@ class MimiEncoderEngine:
         worker thread keeps the device busy across calls. Call each
         finish() exactly once; results are bit-identical to the eager
         path."""
+        if self._pending_autotune is not None:
+            # deferred real-workload autotune (request_autotune): probe on
+            # THIS call's utterances, then fall through and encode them
+            # with the chosen config. Cleared first — the probe re-enters
+            # encode_batch.
+            pa, self._pending_autotune = self._pending_autotune, None
+            if pa["transfer"]:
+                self.autotune_transfer(
+                    seconds=pa["seconds"], rounds=pa["rounds"], samples=audios, sr=sr
+                )
+            if pa["depth"]:
+                self.autotune_pipeline_depth(
+                    depths=pa["depths"], seconds=pa["seconds"],
+                    rounds=pa["rounds"], samples=audios, sr=sr,
+                )
+            if pa["on_complete"] is not None:
+                pa["on_complete"]()
         rate = self.engine_cfg.sample_rate
         resample_arg, spf_io, domain_sr = self._resample_plan(sr)
         if resample_arg is not None:
@@ -438,18 +514,64 @@ class MimiEncoderEngine:
         # host-concurrency role of the reference's ThreadPoolExecutor,
         # yodas2-mimi/process_shard.py:690-717)
         results: List[Optional[np.ndarray]] = [None] * len(pieces)
-        inflight: List[tuple] = []  # (handle, idxs)
+        # (handle, idxs, bucket, budget_len), or (future, idxs) when threaded
+        inflight: List[tuple] = []
+        policy = self.engine_cfg.drain_policy
+        if policy == "threaded" and self._fetch_pool is None:
+            self._fetch_pool = ThreadPoolExecutor(
+                max_workers=max(1, self.engine_cfg.fetch_threads),
+                thread_name_prefix="ta-fetch",
+            )
+
+        def collect_with_retry(handle, idxs, bucket, budget_len):
+            # a fault at collect time recovers by re-dispatching the whole
+            # group and collecting that
+            return self._retry_transient(
+                f"collecting a {len(idxs)}-row batch",
+                lambda: self._collect(handle),
+                recover=lambda: self._collect(
+                    self._dispatch([pieces[g] for g in idxs], bucket, resample_arg, budget_len)
+                ),
+            )
 
         def drain_one():
-            handle, idxs = inflight.pop(0)
-            for g, c in zip(idxs, self._collect(handle)):
+            if policy == "threaded":
+                # the pool started this collect at dispatch time; up to
+                # fetch_threads collects wait on their copies at once
+                fut, idxs = inflight.pop(0)
+                collected = fut.result()
+            else:
+                pick = 0
+                if policy == "ready":
+                    # the first batch whose codes have reached the host, so
+                    # this collect never waits behind a slower, older one;
+                    # FIFO when none has (or on the CPU, with no events).
+                    # Results scatter by piece index, so the order of
+                    # collection never changes the output's order or bits.
+                    pick = next(
+                        (j for j, (h, *_) in enumerate(inflight)
+                         if h[1] is not None and h[1].query()),
+                        0,
+                    )
+                handle, idxs, bucket, budget_len = inflight.pop(pick)
+                collected = collect_with_retry(handle, idxs, bucket, budget_len)
+            for g, c in zip(idxs, collected):
                 results[g] = c
 
         for bucket, budget_len, idxs in jobs:
-            handle = self._dispatch(
-                [pieces[g] for g in idxs], bucket, resample_arg, budget_len
+            handle = self._retry_transient(
+                f"dispatching a {len(idxs)}-row batch",
+                lambda: self._dispatch(
+                    [pieces[g] for g in idxs], bucket, resample_arg, budget_len
+                ),
             )
-            inflight.append((handle, idxs))
+            if policy == "threaded":
+                fut = self._fetch_pool.submit(
+                    collect_with_retry, handle, idxs, bucket, budget_len
+                )
+                inflight.append((fut, idxs))
+            else:
+                inflight.append((handle, idxs, bucket, budget_len))
             if len(inflight) >= self.pipeline_depth:
                 drain_one()
 
@@ -466,7 +588,12 @@ class MimiEncoderEngine:
                 grp = stream_jobs[s : s + self.engine_cfg.stream_batch]
                 enc = self._stream_encoder_for(len(grp))
                 with self.stats.stage("stream"):
-                    codes_list = enc.encode_streams([a for _, a in grp])
+                    # retry is exact: encode_streams resets carried state at
+                    # entry, so the whole group re-streams from scratch
+                    codes_list = self._retry_transient(
+                        f"streaming a {len(grp)}-stream group",
+                        lambda: enc.encode_streams([a for _, a in grp]),
+                    )
                 for (i, _), c in zip(grp, codes_list):
                     with self.stats._lock:
                         self.stats.frames += c.shape[1]
@@ -497,7 +624,8 @@ class MimiEncoderEngine:
         """Carried-state streaming encoder sized to the next power of two
         >= n_streams, cached per size (unused rows ride along as
         zero-length streams), on the engine's device copy of the pruned,
-        packed params. Exact long-audio encode: codes identical to a
+        packed float32 params (the stream ignores compute_dtype). Exact
+        long-audio encode: codes identical to a
         one-shot encode of the whole stream (no 60 s receptive-field cuts).
         Full-causal configs cut streams beyond stream_max_seconds (the HF
         one-shot horizon) at that whole-chunk boundary inside
@@ -513,7 +641,7 @@ class MimiEncoderEngine:
         b = min(b, cap)
         if b not in self._stream_encoders:
             self._stream_encoders[b] = StreamingMimiEncoder(
-                self.params,
+                self._stream_params,
                 self.cfg,
                 batch=b,
                 chunk_seconds=min(8.0, self.engine_cfg.stream_max_seconds),
@@ -559,12 +687,229 @@ class MimiEncoderEngine:
         self.stats = EngineStats()
         return warmed
 
-    def autotune_transfer(self, *args, **kwargs):
-        """Provisioning-time A/B probes of transfer format, depth and drain
-        policy are not ported yet."""
-        raise NotImplementedError("engine autotuning is not ported")
+    def _probe_workload(
+        self,
+        seconds: float,
+        seed: int,
+        samples: Optional[Sequence[np.ndarray]] = None,
+        sr: Optional[int] = None,
+    ) -> "tuple[List[np.ndarray], int]":
+        """Workload for the autotune probes: caller-supplied real
+        utterances when given (capped to ~``seconds`` of audio so probe
+        cost stays bounded), else a seeded lognormal int16 synthetic.
+        Probing the real shard's length mix matters: the synthetic caps at
+        25 s while production runs to the 60 s cap, and a format picked on
+        a workload it never saw can mis-rank."""
+        sr = sr or self.engine_cfg.sample_rate
+        if samples is not None:
+            utts: List[np.ndarray] = []
+            total = 0.0
+            for a in samples:
+                arr = np.asarray(a)
+                utts.append(arr)
+                # duration = the time axis, which for 2-D audio is the
+                # LARGE axis (channels live on the small one, <= 8 —
+                # _prepare_mono's contract); len() would count channels
+                # for channels-first input and break the seconds cap
+                n = max(arr.shape) if arr.ndim == 2 else arr.size
+                total += n / sr
+                if total >= seconds:
+                    break
+            if not utts:
+                raise ValueError("autotune samples must be non-empty")
+            return utts, sr
+        rng = np.random.default_rng(seed)
+        utts = []
+        total = 0.0
+        max_dur = min(25.0, self.engine_cfg.max_chunk_seconds)
+        while total < seconds:
+            dur = float(np.clip(rng.lognormal(1.7, 0.9), 0.5, max_dur))
+            utts.append(rng.integers(-4000, 4000, int(dur * sr), dtype=np.int16))
+            total += dur
+        return utts, sr
 
-    autotune_pipeline_depth = autotune_drain_policy = request_autotune = autotune_transfer
+    def _interleaved_ab(self, candidates, set_candidate, utts, sr: int, rounds: int) -> dict:
+        """Time ``rounds`` interleaved encode passes per candidate (one
+        unmeasured warm pass each first, so first-use set-up never
+        contaminates timings) and return {candidate: median seconds}.
+        Interleaving keeps drift of the machine out of the comparison."""
+        timings: dict = {c: [] for c in candidates}
+        for c in candidates:  # unmeasured warm pass
+            set_candidate(c)
+            self.encode_batch(utts, sr=sr)
+        for _ in range(max(1, rounds)):
+            for c in candidates:
+                set_candidate(c)
+                t0 = time.perf_counter()
+                self.encode_batch(utts, sr=sr)
+                timings[c].append(time.perf_counter() - t0)
+        return {c: float(np.median(ts)) for c, ts in timings.items()}
+
+    def _probe(self, candidates, set_candidate, utts, sr: int, rounds: int) -> dict:
+        """``_interleaved_ab`` on fresh stats. The engine's config, depth
+        and stats are restored on every exit, KeyboardInterrupt included,
+        so an interrupted probe never leaves the engine in a candidate's
+        config; the caller then applies the winner."""
+        saved = self.stats, self.engine_cfg, self.pipeline_depth
+        self.stats = EngineStats()
+        try:
+            return self._interleaved_ab(candidates, set_candidate, utts, sr, rounds)
+        finally:
+            self.stats, self.engine_cfg, self.pipeline_depth = saved
+
+    def _drop_idle_fetch_pool(self) -> None:
+        """Shut down the fetch pool when the drain policy does not use it
+        (a probe's "threaded" passes create it)."""
+        if self.engine_cfg.drain_policy != "threaded" and self._fetch_pool is not None:
+            self._fetch_pool.shutdown(wait=True)
+            self._fetch_pool = None
+
+    def autotune_transfer(
+        self,
+        seconds: float = 40.0,
+        rounds: int = 3,
+        seed: int = 0,
+        samples: Optional[Sequence[np.ndarray]] = None,
+        sr: Optional[int] = None,
+        try_compact: bool = False,
+    ) -> str:
+        """Pick the fastest ``code_transfer_format`` on THIS machine by a
+        within-process interleaved A/B, then switch the engine to it
+        (CLI ``--code-transfer-format auto``, right after ``warmup``).
+        ``try_compact=True`` also probes "compact", which is otherwise
+        left to manual selection.
+
+        Pass ``samples`` (+ their ``sr``) to probe on real shard
+        utterances instead of the synthetic lognormal (capped to
+        ``seconds`` of audio); ``request_autotune`` wires this to the first
+        production batch. Encode is stateless, so switching formats only
+        changes the wire layout; codes are bit-equal across formats.
+        Engine throughput stats are untouched. Returns the chosen format;
+        per-format median seconds land in ``self.last_autotune``."""
+        candidates = ["packed", "padded"]
+        if self.num_codebooks % 2 != 0:
+            candidates = ["padded"]
+        elif try_compact and self.masked:
+            candidates.append("compact")
+        if len(candidates) == 1:
+            # the constructor's odd-K fallback already pinned this format:
+            # a timed probe to "choose" the only option would burn encode
+            # passes for nothing
+            self.last_autotune = {candidates[0]: 0.0}
+            self._set_transfer_format(candidates[0])
+            return candidates[0]
+        utts, sr = self._probe_workload(seconds, seed, samples, sr)
+        medians = self._probe(candidates, self._set_transfer_format, utts, sr, rounds)
+        self.last_autotune = medians
+        best = min(candidates, key=lambda f: medians[f])
+        self._set_transfer_format(best)
+        logger.info(
+            "autotune_transfer picked %r (medians: %s)",
+            best, {f: f"{m:.3f}s" for f, m in medians.items()},
+        )
+        return best
+
+    def autotune_pipeline_depth(
+        self,
+        depths: Sequence[int] = (6, 12, 18),
+        seconds: float = 40.0,
+        rounds: int = 3,
+        seed: int = 0,
+        samples: Optional[Sequence[np.ndarray]] = None,
+        sr: Optional[int] = None,
+    ) -> int:
+        """Pick the fastest ``pipeline_depth`` (in-flight device batches)
+        by the same interleaved A/B as :meth:`autotune_transfer`, then
+        switch the engine to it. Depth is transport-only: more hides more
+        per-batch host latency at the cost of pinned and device buffers.
+        Returns the chosen depth; per-depth median seconds land in
+        ``self.last_autotune_depth``."""
+        depths = [int(d) for d in depths]
+        if any(d < 1 for d in depths):
+            raise ValueError(f"pipeline depths must be >= 1: {depths}")
+        utts, sr = self._probe_workload(seconds, seed, samples, sr)
+
+        def set_depth(d: int) -> None:
+            self.pipeline_depth = d
+
+        medians = self._probe(depths, set_depth, utts, sr, rounds)
+        self.last_autotune_depth = medians
+        best = min(depths, key=lambda d: medians[d])
+        set_depth(best)
+        logger.info(
+            "autotune_pipeline_depth picked %d (medians: %s)",
+            best, {d: f"{m:.3f}s" for d, m in medians.items()},
+        )
+        return best
+
+    def autotune_drain_policy(
+        self,
+        policies: Sequence[str] = ("fifo", "ready", "threaded"),
+        seconds: float = 40.0,
+        rounds: int = 3,
+        seed: int = 0,
+        samples: Optional[Sequence[np.ndarray]] = None,
+        sr: Optional[int] = None,
+    ) -> str:
+        """Pick the fastest ``drain_policy`` by the same interleaved A/B as
+        :meth:`autotune_transfer`, then switch to it (CLI
+        ``--drain-policy auto``). Bits and result order are identical in
+        every policy, so the probe is pure transport scheduling. Returns
+        the chosen policy; per-policy median seconds land in
+        ``self.last_autotune_drain``."""
+        policies = [str(p) for p in policies]
+        allowed = {"fifo", "ready", "threaded"}
+        if not set(policies) <= allowed:
+            raise ValueError(f"unknown drain policies: {set(policies) - allowed}")
+        utts, sr = self._probe_workload(seconds, seed, samples, sr)
+
+        def set_policy(p: str) -> None:
+            self.engine_cfg = dataclasses.replace(self.engine_cfg, drain_policy=p)
+
+        try:
+            medians = self._probe(policies, set_policy, utts, sr, rounds)
+        except BaseException:
+            self._drop_idle_fetch_pool()  # interrupted: no pool behind the old policy
+            raise
+        self.last_autotune_drain = medians
+        best = min(policies, key=lambda p: medians[p])
+        set_policy(best)
+        self._drop_idle_fetch_pool()
+        logger.info(
+            "autotune_drain_policy picked %r (medians: %s)",
+            best, {p: f"{m:.3f}s" for p, m in medians.items()},
+        )
+        return best
+
+    def request_autotune(
+        self,
+        transfer: bool = True,
+        depth: bool = False,
+        seconds: float = 40.0,
+        rounds: int = 3,
+        depths: Sequence[int] = (6, 12, 18),
+        on_complete: Optional[Callable[[], None]] = None,
+    ) -> None:
+        """Defer autotuning to the first :meth:`encode_batch` call, which
+        probes on THAT call's utterances — the real workload's length mix
+        and dtype — instead of the synthetic lognormal. The first batch is
+        encoded with the chosen config right after the probe; later
+        batches are untouched. ``on_complete`` (if given) runs after the
+        probes pick, before the triggering batch is encoded — the CLI uses
+        it to re-warm the bucket lattices when the probe switches wire
+        formats. CLI: ``--code-transfer-format auto-data`` /
+        ``--pipeline-depth auto-data``."""
+        self._pending_autotune = {
+            "transfer": transfer,
+            "depth": depth,
+            "seconds": seconds,
+            "rounds": rounds,
+            "depths": tuple(depths),
+            "on_complete": on_complete,
+        }
+
+    def _set_transfer_format(self, fmt: str) -> None:
+        self.engine_cfg = dataclasses.replace(self.engine_cfg, code_transfer_format=fmt)
 
     def encode_chunk(self, audio: np.ndarray, sr: int = 24_000) -> np.ndarray:
         """Single-utterance encode (reference encode_audio_chunk,

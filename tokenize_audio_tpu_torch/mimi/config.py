@@ -63,12 +63,21 @@ class MimiConfig:
     # cuDNN conv, so its code agreement is measured, not bit-guaranteed.
     # Applies only to the standard geometry (num_residual_layers=1).
     seanet_backend: str = "kernel"
-    # "float32" (default): IEEE fp32 everywhere, bit-exact codes vs HF
-    # MimiModel.encode fp32 on the CPU. "bfloat16" is not ported yet
-    # (encode raises NotImplementedError).
+    # "float32" (default): bit-exact codes vs HF MimiModel.encode fp32 on
+    # the CPU. "bfloat16": SEANet + transformer + downsample compute in
+    # bf16 (LayerNorm/softmax/RoPE/RVQ stay f32, and so does the streaming
+    # encoder); codes are NOT bit-identical to float32's, and the fused
+    # resblock kernel (float32 only) gives way to the plain convs. Not a
+    # parity mode: its code match against parity is measured, not promised.
     compute_dtype: str = "float32"
-    # "highest" (IEEE fp32, TF32 off) is the only mode the port has; other
-    # levels raise NotImplementedError in encode.
+    # float32 precision of the SEANet convs, transformer matmuls and the
+    # 25->12.5 Hz downsample (mimi.model.matmul_precision):
+    #   "highest" — IEEE fp32 (TF32 off). The ONLY parity mode.
+    #   "high", "default" — TF32 on the card (cuDNN/cuBLAS), what XLA gives
+    #               Precision.HIGH/DEFAULT on f32 on an NVIDIA GPU; not
+    #               parity. On the CPU both equal "highest".
+    # The resample, the quantizer in_proj and the RVQ always stay IEEE:
+    # they are argmin-adjacent.
     matmul_precision: str = "highest"
 
     @property

@@ -34,7 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from tokenize_audio_tpu_torch.config import ieee_fp32
+from tokenize_audio_tpu_torch.config import fp32_precision, ieee_fp32
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.ops.cuda import rvq as rvq_ops
 from tokenize_audio_tpu_torch.ops.cuda import seanet as seanet_ops
@@ -43,21 +43,70 @@ Params = Dict[str, Any]
 _BACKENDS = ("kernel", "torch")
 
 
+# f32 matmul/conv precision per MimiConfig.matmul_precision, as the mode of
+# config.fp32_precision. On an NVIDIA GPU, XLA runs f32 dots and convs at
+# Precision.HIGH and DEFAULT in TF32, so both map to "tf32"; "highest" is
+# IEEE fp32. On the CPU the TF32 flags change nothing, as XLA:CPU ignores
+# precision.
+_PRECISIONS = {"highest": "ieee", "high": "tf32", "default": "tf32"}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def matmul_precision(cfg: MimiConfig) -> str:
+    """The fp32 mode ("ieee" or "tf32") of the SEANet convs, transformer
+    matmuls and downsample (MimiConfig.matmul_precision). The resample, the
+    quantizer in_proj and the RVQ stay IEEE regardless: they are
+    argmin-adjacent."""
+    try:
+        return _PRECISIONS[cfg.matmul_precision]
+    except KeyError:
+        raise ValueError(
+            f"MimiConfig.matmul_precision {cfg.matmul_precision!r} not in "
+            f"{sorted(_PRECISIONS)}"
+        ) from None
+
+
+def compute_dtype(cfg: MimiConfig) -> torch.dtype:
+    """The dtype of the SEANet, transformer and downsample compute."""
+    try:
+        return _DTYPES[cfg.compute_dtype]
+    except KeyError:
+        raise ValueError(
+            f"MimiConfig.compute_dtype {cfg.compute_dtype!r} not in {sorted(_DTYPES)}"
+        ) from None
+
+
 def _check_modes(cfg: MimiConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: the port runs float32 only"
-        )
-    if cfg.matmul_precision != "highest":
-        raise NotImplementedError(
-            f"matmul_precision {cfg.matmul_precision!r}: the port runs "
-            "IEEE fp32 ('highest') only"
-        )
+    matmul_precision(cfg)
+    compute_dtype(cfg)
     for name in ("rvq_backend", "seanet_backend"):
         if getattr(cfg, name) not in _BACKENDS:
             raise ValueError(
                 f"MimiConfig.{name} {getattr(cfg, name)!r} not in {_BACKENDS}"
             )
+
+
+def _cast_tree(tree, dtype: torch.dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_tree(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
+        return tree.to(dtype)
+    return tree
+
+
+def cast_for_compute(params: Params, cfg: MimiConfig) -> Params:
+    """The encode params with the conv, transformer and downsample weights
+    in the compute dtype (the RVQ stays f32); the tree itself in float32
+    mode, and a no-op on a tree already cast."""
+    dt = compute_dtype(cfg)
+    if dt == torch.float32:
+        return params
+    return {
+        k: _cast_tree(v, dt) if k in ("enc_in", "blocks", "enc_out", "tfm", "downsample") else v
+        for k, v in params.items()
+    }
 
 
 def _positions(t: int, device: torch.device) -> torch.Tensor:
@@ -223,7 +272,9 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    return F.layer_norm(x, (x.shape[-1],), w, b, eps)
+    """LayerNorm computed in f32, returned in x's dtype (bf16 mode)."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps)
+    return y.to(x.dtype)
 
 
 def _attention_mask(cfg: MimiConfig, t: int, device: torch.device) -> torch.Tensor:
@@ -242,25 +293,30 @@ def _attention_mask(cfg: MimiConfig, t: int, device: torch.device) -> torch.Tens
 def transformer_apply(params: Params, cfg: MimiConfig, h: torch.Tensor) -> torch.Tensor:
     """(B, T, C) -> (B, T, C). Mirrors MimiTransformerModel with eager
     attention (modeling_mimi.py:608-703, 922-994): pre-LN, RoPE, fp32
-    softmax, LayerScale residuals, bias-free projections, erf GELU MLP."""
+    softmax, LayerScale residuals, bias-free projections, erf GELU MLP.
+    In h's dtype, with LayerNorm, RoPE and softmax in f32 (bf16 mode)."""
     b, t, _ = h.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    dt = h.dtype
+    # cos/sin stay f32: the rotation products compute in f32 (bf16 * f32
+    # promotes) and are narrowed back, as the JAX package does
     cos, sin = _rope_tables(cfg, t, h.device)
     cos_b = cos[None, None, :, :]
     sin_b = sin[None, None, :, :]
-    mask = _attention_mask(cfg, t, h.device)[None, None, :, :]
+    mask = _attention_mask(cfg, t, h.device)[None, None, :, :].to(dt)
 
     for lp in params:
         x = _layer_norm(h, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
         q = F.linear(x, lp["q"]).view(b, t, nh, hd).transpose(1, 2)
         k = F.linear(x, lp["k"]).view(b, t, nh, hd).transpose(1, 2)
         v = F.linear(x, lp["v"]).view(b, t, nh, hd).transpose(1, 2)
-        q = q * cos_b + _rotate_half(q) * sin_b
-        k = k * cos_b + _rotate_half(k) * sin_b
+        q = (q * cos_b + _rotate_half(q) * sin_b).to(dt)
+        k = (k * cos_b + _rotate_half(k) * sin_b).to(dt)
         aw = torch.matmul(q, k.transpose(2, 3)) * scale
         aw = aw + mask
-        aw = F.softmax(aw, dim=-1, dtype=torch.float32)
+        # fp32 softmax then back to the compute dtype (MimiAttention:684-685)
+        aw = F.softmax(aw, dim=-1, dtype=torch.float32).to(dt)
         att = torch.matmul(aw, v)
         att = att.transpose(1, 2).contiguous().view(b, t, nh * hd)
         att = F.linear(att, lp["o"])
@@ -294,7 +350,8 @@ def rvq_quantize(residual: torch.Tensor, embeds: torch.Tensor) -> torch.Tensor:
 def split_rvq_encode(
     params: Params, emb: torch.Tensor, num_quantizers: int, backend: str = "kernel"
 ) -> torch.Tensor:
-    """(B, hidden, T) -> int32 codes (B, K, T).
+    """(B, hidden, T) float32 -> int32 codes (B, K, T), in IEEE fp32 in
+    every mode (the JAX package's in_proj and distances run at HIGHEST).
     Mirrors MimiSplitResidualVectorQuantizer.encode (modeling_mimi.py:1318-1345):
     semantic RVQ on the projected embeddings, acoustic RVQ *also on the
     original embeddings* (not the semantic residual)."""
@@ -327,13 +384,14 @@ def split_rvq_encode(
 
     sem = params["semantic"]
     n_sem = sem["embed"].shape[0]
-    sem_in = F.conv1d(emb, sem["in_proj"][:, :, None])
-    codes = quantize(sem_in, sem, min(n_sem, num_quantizers))
-    n_ac = num_quantizers - codes.shape[1]
-    if n_ac > 0:
-        ac = params["acoustic"]
-        ac_in = F.conv1d(emb, ac["in_proj"][:, :, None])
-        codes = torch.cat([codes, quantize(ac_in, ac, n_ac)], dim=1)
+    with ieee_fp32():
+        sem_in = F.conv1d(emb, sem["in_proj"][:, :, None])
+        codes = quantize(sem_in, sem, min(n_sem, num_quantizers))
+        n_ac = num_quantizers - codes.shape[1]
+        if n_ac > 0:
+            ac = params["acoustic"]
+            ac_in = F.conv1d(emb, ac["in_proj"][:, :, None])
+            codes = torch.cat([codes, quantize(ac_in, ac, n_ac)], dim=1)
     return codes
 
 
@@ -374,11 +432,14 @@ def encode(
         (per-row frame counts are host-derivable from lengths). Requires
         masked=True with valid. K must be even for the packed modes.
 
-    The body runs in IEEE fp32 (``ieee_fp32``: TF32 off for cuDNN and
-    cuBLAS), the counterpart of JAX ``Precision.HIGHEST``.
+    The body runs in ``matmul_precision(cfg)`` (``fp32_precision``; IEEE
+    fp32 by default, the counterpart of JAX ``Precision.HIGHEST``) and
+    ``cfg.compute_dtype`` (the conv, transformer and downsample weights are
+    cast by ``cast_for_compute``, a no-op on a tree already cast); the
+    resample, the in_proj and the RVQ stay IEEE fp32 in every mode.
     """
     _check_modes(cfg)
-    with ieee_fp32():
+    with fp32_precision(matmul_precision(cfg)):
         return _encode(
             params, cfg, audio, valid, num_quantizers, masked, code_dtype,
             resample, transfer,
@@ -386,6 +447,8 @@ def encode(
 
 
 def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer):
+    dt = compute_dtype(cfg)
+    params = cast_for_compute(params, cfg)
     if audio.dtype == torch.int16:
         # device-side PCM normalization: int16 -> f32 and /32768 are both
         # exact, so shipping raw 16-bit PCM halves host->device bytes with
@@ -411,7 +474,7 @@ def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resam
         up, down = resample
         audio = _resample_batch(audio.to(torch.float32), up, down)
         valid = (valid * up + down - 1) // down  # ceil(valid * up / down)
-    x = audio[:, None, :].to(torch.float32)
+    x = audio[:, None, :].to(dt)
     valid_in = valid
     if not masked:
         valid = None
@@ -424,7 +487,9 @@ def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resam
     x, valid = causal_conv1d(
         x, valid, params["downsample"]["w"], None, stride=2, pad_mode="replicate"
     )
-    codes = split_rvq_encode(params["rvq"], x, num_quantizers, backend=cfg.rvq_backend)
+    codes = split_rvq_encode(
+        params["rvq"], x.to(torch.float32), num_quantizers, backend=cfg.rvq_backend
+    )
     if valid is None and valid_in is not None:
         # unmasked (HF batch semantics) still reports per-row frame counts
         spf = cfg.samples_per_frame

@@ -31,7 +31,9 @@ receptive-field cuts (yodas2-mimi/process_shard.py:436-493) — up to the
 The SEANet convs of a step are plain ``F.conv1d`` over ``[cache | x]`` (the
 fused resblock kernel needs the whole row); the RVQ runs through
 ``split_rvq_encode`` with the configured backend, on the codebooks packed
-once per encoder. Every step runs in IEEE fp32 (``ieee_fp32``).
+once per encoder. A step runs in ``matmul_precision(cfg)`` (IEEE fp32 by
+default; the RVQ and its in_proj always IEEE) and always in float32: the
+stream ignores ``compute_dtype``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tokenize_audio_tpu_torch.config import ieee_fp32, resolve_device
+from tokenize_audio_tpu_torch.config import fp32_precision, resolve_device
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.mimi.model import (
     _check_modes,
@@ -52,6 +54,7 @@ from tokenize_audio_tpu_torch.mimi.model import (
     _layer_norm,
     _rope_at,
     _rotate_half,
+    matmul_precision,
     split_rvq_encode,
 )
 from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
@@ -232,7 +235,7 @@ def stream_step(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode one chunk: returns (int32 codes (B, K, chunk frames), valid
     frames per row (B,)) and advances ``state`` in place."""
-    with ieee_fp32():
+    with fp32_precision(matmul_precision(cfg)):
         return _stream_step(params, cfg, state, audio, valid, num_quantizers)
 
 

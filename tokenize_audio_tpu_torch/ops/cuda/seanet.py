@@ -151,8 +151,11 @@ def seanet_stage(
     packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full stage: fused resblock + ELU, then the strided causal down-conv
-    (PyTorch). Returns (z (B, 2C, T//stride), new_valid)."""
+    (PyTorch). Returns (z (B, 2C, T//stride), new_valid). The down-conv
+    runs in IEEE fp32 whatever the caller's precision, as the JAX
+    package's ``seanet_stage_pallas`` runs it at HIGHEST."""
     from tokenize_audio_tpu_torch.mimi.model import causal_conv1d
 
     ye = resblock_elu(x.contiguous(), valid, w3, b3, w1, b1, packed=packed)
-    return causal_conv1d(ye, valid, wd, bd, stride=stride)
+    with ieee_fp32():
+        return causal_conv1d(ye, valid, wd, bd, stride=stride)

@@ -22,7 +22,9 @@ the run (non-zero exit, no final result line) if its check fails:
                 seed 0), 32 codebooks, packed transfer, fifo drain, on a
                 YODAS2-shaped sub-shard through encode_batch(defer=True) and
                 finish(); both kernels' launch counts must rise, and the codes
-                are held against the plain-PyTorch ("torch") backends; every
+                are held against the plain-PyTorch ("torch") backends (>= 0.999
+                of frames, as the qualify phase's census supports, and every
+                first divergence a near-tie under the kit's TIE_MARGIN); every
                 (B, C, T) the main path launches the resblock kernel with,
                 and every (N, K) it launches the RVQ kernel with, is recorded;
   5. stream   — the engine with long_audio_policy="stream" (defaults
@@ -117,19 +119,42 @@ the run (non-zero exit, no final result line) if its check fails:
                 of frames, flips near-ties), TF32 flags in every thread, one
                 LibriSpeech and one Common Voice utterance against the CPU
                 engine, RTF and host stage seconds per corpus;
+  9b. qualify — the port's qualification kit (``tokenize_audio_tpu_torch.
+                qualify``) at the published kyutai/mimi width, 32 codebooks,
+                kernel backends on the card, the HF oracle on the CPU, for
+                weight seeds 0 (``save_pretrained`` + the kit's CLI with
+                ``--hf-dir``), 1 and 2, each through the kit's default sweep
+                (>= 10k frames in all): every report passing (no non-tie
+                flip, per-layer deviations under the kit's atols through the
+                resblock kernel, file conversion exact), TF32 off at every
+                conv1d, linear and matmul, the kernels' launches by engine
+                (parity sweep, bf16 check, per-layer) and shapes (the
+                ``qualify_path``); seed 0's sweep also through the port's
+                CPU engine (card vs CPU, CPU vs HF); the installed
+                transformers' encode window mode (5.x applies the 250-step
+                window, 4.x and the port's config do not) and the sweep's
+                flips past the window, reported;
+  9c. fleet   — ``python -m tokenize_audio_tpu_torch.runner.pod_runner run
+                --max-concurrent 2 --wait`` over the port's YODAS2 command
+                line on a two-shard mirror (the qualify phase's checkpoint
+                as ``--params``): both shards complete with the single-GPU
+                warning, hub codes equal to a direct encode_batch (>= 0.999
+                of frames), a rerun that launches nothing, the monitor's
+                status and verify, the manifests' shards and unit counts,
+                and ``chip_check`` on GPU 0 and at an index with no GPU;
  10. replay   — the resblock kernel at each shape recorded on the main path,
-                the YODAS2 path, the bench and the corpora: agreement with
-                its plain version, CUDA-event times and the FP32 bound,
+                the YODAS2 path, the bench, the corpora and the kit: agreement
+                with its plain version, CUDA-event times and the FP32 bound,
                 summed per C as count x ms (the ``main_path``,
-                ``yodas2_path``, ``bench_path`` and ``corpus_path`` entries
-                of its record);
+                ``yodas2_path``, ``bench_path``, ``corpus_path`` and
+                ``qualify_path`` entries of its record);
  11. rvq_replay — the RVQ kernel at each recorded (N, K) of the main,
-                stream, YODAS2, bench and corpus paths, on the model's
-                codebooks: code agreement with its plain version (first
-                divergences must be near-ties), CUDA-event times and the
-                FP32 bound, summed as count x ms (the ``main_path``,
-                ``stream_path``, ``yodas2_path``, ``bench_path`` and
-                ``corpus_path`` entries of its record);
+                stream, YODAS2, bench, corpus and qualify paths, on the
+                model's codebooks: code agreement with its plain version
+                (first divergences must be near-ties), CUDA-event times and
+                the FP32 bound, summed as count x ms (the ``main_path``,
+                ``stream_path``, ``yodas2_path``, ``bench_path``,
+                ``corpus_path`` and ``qualify_path`` entries of its record);
  12. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
@@ -521,6 +546,7 @@ class KernelSpy:
 def phase_main(torch):
     from tokenize_audio_tpu_torch.engine import EngineStats, MimiEncoderEngine
     from tokenize_audio_tpu_torch.mimi import MimiConfig, model, params_to_torch, random_params
+    from tokenize_audio_tpu_torch.qualify import TIE_MARGIN
 
     cfg = MimiConfig()
     params = params_to_torch(random_params(cfg, seed=SEED))  # on the card
@@ -544,7 +570,7 @@ def phase_main(torch):
         torch.cuda.synchronize()
         engine.stats = EngineStats()
         # the kernels' shapes on the main path
-        with KernelSpy() as kernels:
+        with KernelSpy() as kernels, RvqCallSpy() as kernel_rvq:
             t0 = time.perf_counter()
             finish = engine.encode_batch(audios, sr=SR, defer=True)
             codes = finish()
@@ -575,18 +601,39 @@ def phase_main(torch):
     plain_engine = MimiEncoderEngine(params, plain_cfg, num_codebooks=32)
     plain_engine.encode_batch(audios[:4], sr=SR)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain_codes = plain_engine.encode_batch(audios, sr=SR)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
+    with RvqCallSpy() as plain_rvq:
+        t0 = time.perf_counter()
+        plain_codes = plain_engine.encode_batch(audios, sr=SR)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
     plain_profile = device_breakdown(torch, lambda: plain_engine.encode_batch(audios, sr=SR))
     ab = interleaved_rtf(torch, {"kernel": engine, "torch": plain_engine}, audios, audio_seconds)
     same = np.concatenate([(a == b).reshape(-1) for a, b in zip(codes, plain_codes)])
     frames_same = np.concatenate([(a == b).all(axis=0) for a, b in zip(codes, plain_codes)])
     code_match, frame_match = float(same.mean()), float(frames_same.mean())
-    # a wrong kernel scrambles codes wholesale; summation-order deltas flip
-    # only near-ties and the books after them in that frame
-    check(code_match >= 0.9, f"kernel vs torch backend code match {code_match}")
+    # summation-order deltas flip only near-ties (and the books after them in
+    # that frame): the qualify phase's census bounds how often, and each
+    # first divergence must be a near-tie, replayed on the plain run's RVQ
+    # input of the same batched calls in which the two backends diverged
+    check(frame_match >= 0.999, f"kernel vs torch backend frame match {frame_match}")
+    check(len(kernel_rvq.calls) == len(plain_rvq.calls)
+          and all(k[0].shape == p[0].shape for k, p in zip(kernel_rvq.calls, plain_rvq.calls)),
+          "the two backends' batched runs made the same RVQ calls")
+    margins, call_frames = [], 0
+    for (_, got), (emb, want) in zip(kernel_rvq.calls, plain_rvq.calls):
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        for b in np.nonzero((got != want).any(axis=(1, 2)))[0]:
+            call_frames += int((got[b] != want[b]).any(axis=0).sum())
+            m = flip_margins(torch, plain_engine.params["rvq"], emb[b:b + 1], got[b], want[b])
+            check(m is not None, "kernel vs torch backend: too many differing frames")
+            margins += m
+    # every differing frame of the returned codes is a frame of some call
+    check(call_frames >= int((~frames_same).sum()),
+          f"the batched RVQ calls hold {call_frames} differing frames, "
+          f"the codes {int((~frames_same).sum())}")
+    max_margin = max(margins, default=0.0)
+    check(max_margin < TIE_MARGIN,
+          f"kernel vs torch backend: a first divergence is no near-tie: {max_margin}")
     emit({
         "phase": "main",
         "utterances": len(audios),
@@ -600,12 +647,34 @@ def phase_main(torch):
         "torch_backend_realtime_factor": audio_seconds / plain_wall,
         "kernel_vs_torch_backend_code_match": code_match,
         "kernel_vs_torch_backend_frame_match": frame_match,
+        "kernel_vs_torch_backend_flip_margins": margins,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
     emit({"phase": "main_ab", **ab})
     emit({"phase": "main_profile", "backend": "kernel", **profile})
     emit({"phase": "main_profile", "backend": "torch", **plain_profile})
     return launches, shapes, rvq_shapes
+
+
+class RvqCallSpy:
+    """While open, records the RVQ input and (B, K, T) codes of every
+    ``split_rvq_encode`` call, as device tensors (no sync)."""
+
+    def __enter__(self):
+        from tokenize_audio_tpu_torch.mimi import model
+
+        self.model, self.orig, self.calls = model, model.split_rvq_encode, []
+
+        def spy(p, emb, *args, **kwargs):
+            codes = self.orig(p, emb, *args, **kwargs)
+            self.calls.append((emb, codes))
+            return codes
+
+        model.split_rvq_encode = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.model.split_rvq_encode = self.orig
 
 
 def interleaved_rtf(torch, engines, audios, audio_seconds, pairs: int = AB_PAIRS):
@@ -2345,6 +2414,371 @@ def check_rerun(name, reports):
     check(ok, f"{name} rerun reports {reports}")
 
 
+QUALIFY_WEIGHT_SEEDS = (0, 1, 2)  # each through the kit's default sweep (audio seeds 0, 1, 2)
+QUALIFY_BOOKS = 32
+QUALIFY_MIN_FRAMES = 10_000
+
+
+class QualifyRecorder:
+    """Replaces the kit's engine class and HF reference by spies that
+    record, per engine dtype ("float32": the parity sweep, "bfloat16": the
+    informational check), the codes of each ``encode_batch`` and both
+    kernels' launches in it, and each HF reference (audio, codes) in order."""
+
+    def __init__(self, kernels):
+        from tokenize_audio_tpu_torch import qualify
+
+        self.qualify, self.kernels = qualify, kernels
+        self.runs, self.hf = {}, []
+
+    def __enter__(self):
+        q, rec = self.qualify, self
+        self.orig = q.MimiEncoderEngine, q._hf_codes
+
+        class Recording(self.orig[0]):
+            def encode_batch(self, audios, *args, **kwargs):
+                before = rec.kernels.launches()
+                out = super().encode_batch(audios, *args, **kwargs)
+                after = rec.kernels.launches()
+                run = rec.runs.setdefault(self.cfg.compute_dtype,
+                                          {"launches": collections.Counter(), "codes": []})
+                run["launches"].update({k: after[k] - before[k] for k in after})
+                run["codes"].append(out)
+                return out
+
+        def hf_spy(model, audio, k):
+            codes = rec.orig[1](model, audio, k)
+            rec.hf.append((audio, codes))
+            return codes
+
+        q.MimiEncoderEngine, q._hf_codes = Recording, hf_spy
+        return self
+
+    def __exit__(self, *exc):
+        self.qualify.MimiEncoderEngine, self.qualify._hf_codes = self.orig
+
+
+def code_frames(got, want):
+    """[equal frames, frames] of two lists of (K, frames) codes."""
+    same = []
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, f"codes {g.shape} vs {w.shape}")
+        same.append((g == w).all(axis=0))
+    same = np.concatenate(same)
+    return [int(same.sum()), int(same.size)]
+
+
+def phase_qualify(torch, tmp):
+    """The port's qualification kit at the published kyutai/mimi width
+    (``transformers.MimiConfig()``), 32 codebooks, kernel backends, on the
+    card, with the HF oracle on the CPU, for three weight seeds through the
+    kit's default sweep: seed 0 saved with ``save_pretrained`` and run
+    through the kit's command line with ``--hf-dir`` (the file-vs-module
+    conversion check), seeds 1 and 2 through ``run_qualification``. Every
+    report must pass (no non-tie flip; per-layer deviations under the
+    kit's atols through the resblock kernel), over >= 10k frames, with both
+    TF32 flags False at every conv1d, linear and matmul. Seed 0's sweep is
+    also encoded by the port's CPU engine: card vs port-CPU and port-CPU vs
+    HF frame matches under this machine's transformers, whose encode window
+    mode and the sweep's flips past the window are reported. Returns the
+    kernels' launches by engine, their shapes, and seed 0's checkpoint
+    file."""
+    import transformers
+
+    from tokenize_audio_tpu_torch import qualify
+    from tokenize_audio_tpu_torch.config import EngineConfig
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+    from tokenize_audio_tpu_torch.mimi.weights import config_from_hf, params_from_safetensors
+
+    t0 = time.perf_counter()
+    hf_dir = Path(tmp) / "oracle_seed0"
+    qualify._random_oracle(QUALIFY_WEIGHT_SEEDS[0]).save_pretrained(str(hf_dir))
+    reports, seed0 = [], None
+    with SiteFlagSpy(torch) as flags, KernelSpy() as kernels, QualifyRecorder(kernels) as rec:
+        for seed in QUALIFY_WEIGHT_SEEDS:
+            if seed == QUALIFY_WEIGHT_SEEDS[0]:
+                out = Path(tmp) / "qualify_seed0.json"
+                with contextlib.redirect_stdout(io.StringIO()), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    rc = qualify.main(["--hf-dir", str(hf_dir), "--num-codebooks",
+                                       str(QUALIFY_BOOKS), "--out", str(out),
+                                       "--out-md", str(Path(tmp) / "qualify_seed0.md")])
+                report = json.loads(out.read_text())
+                check(rc == (0 if report["passed"] else 1), f"kit CLI exit {rc}")
+                seed0 = {"hf": list(rec.hf), "card": [c for run in rec.runs["float32"]["codes"][:3]
+                                                      for c in run]}
+            else:
+                report = qualify.run_qualification(oracle_seed=seed, num_codebooks=QUALIFY_BOOKS)
+            report["weight_seed"] = seed
+            reports.append(report)
+            rec.hf.clear()
+            emit({"phase": "qualify_report", **{k: v for k, v in report.items() if k != "checks"},
+                  "checks": {name: {k: v for k, v in c.items() if k != "flips"}
+                             for name, c in report["checks"].items()}})
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+    shapes, rvq_shapes = kernels.shapes, kernels.rvq_shapes
+    kit_seconds = time.perf_counter() - t0
+    check(sum(shapes.values()) == launches["resblock_elu"]
+          and sum(rvq_shapes.values()) == launches["rvq_quantize"],
+          f"qualify shapes vs launches {launches}")
+    # the parity sweep's engine, the bf16 check's, and the per-layer check
+    by_engine = {name: dict(rec.runs[dt]["launches"])
+                 for name, dt in (("parity", "float32"), ("bf16", "bfloat16"))}
+    by_engine["per_layer"] = {k: n - sum(r[k] for r in by_engine.values())
+                              for k, n in launches.items()}
+    check(all(by_engine["parity"][k] > 0 for k in launches),
+          f"the parity sweep launched both kernels: {by_engine}")
+    check(by_engine["bf16"]["resblock_elu"] == 0 and by_engine["bf16"]["rvq_quantize"] > 0,
+          f"bf16 launches the RVQ kernel and not the (f32-only) resblock: {by_engine}")
+    check(by_engine["per_layer"]["resblock_elu"] == 4 * len(QUALIFY_WEIGHT_SEEDS)
+          and by_engine["per_layer"]["rvq_quantize"] == 0,
+          f"the per-layer check runs the resblock kernel once per stage: {by_engine}")
+    tf32_on = [c for c in flags.calls if c[3] or c[4]]
+    check(not tf32_on, f"TF32 flags on inside the kit: {tf32_on[:5]}")
+    sites = collections.Counter(site or "hf_oracle_cpu" for _, site, *_ in flags.calls)
+    check(sites["seanet_encode"] > 0 and sites["transformer_apply"] > 0 and sites["_encode"] > 0,
+          f"the kit's launch sites: {dict(sites)}")
+
+    table, flips = [], []
+    for rep in reports:
+        c = rep["checks"]
+        check(rep["passed"], f"weight seed {rep['weight_seed']}: kit failed: "
+              + json.dumps({k: v for k, v in c.items() if k != "exact_codes"}))
+        check(c["per_layer"]["seanet_max_abs_dev"] < qualify.SEANET_ATOL
+              and c["per_layer"]["transformer_max_abs_dev"] < qualify.TFM_ATOL,
+              f"weight seed {rep['weight_seed']}: per-layer {c['per_layer']}")
+        e = c["exact_codes"]
+        flips += e["flips"]
+        table.append({"weight_seed": rep["weight_seed"], "frames": e["frames"],
+                      "audio_seconds": e["audio_seconds"], "flipped_frames": e["flipped_frames"],
+                      "non_tie_flips": e["non_tie_flips"], "per_audio_seed": e["per_seed"],
+                      "seanet_max_abs_dev": c["per_layer"]["seanet_max_abs_dev"],
+                      "transformer_max_abs_dev": c["per_layer"]["transformer_max_abs_dev"],
+                      "bf16_code_match_vs_f32": c["bf16_fast_mode"]["code_match_vs_f32"]})
+    check(reports[0]["checks"]["file_conversion_matches_module"]["max_abs_dev"] == 0.0,
+          f"--hf-dir file conversion: {reports[0]['checks']['file_conversion_matches_module']}")
+    frames = sum(r["frames"] for r in table)
+    flipped = sum(r["flipped_frames"] for r in table)
+    check(frames >= QUALIFY_MIN_FRAMES, f"census of {frames} frames < {QUALIFY_MIN_FRAMES}")
+
+    # seed 0's sweep through the port's CPU engine
+    t1 = time.perf_counter()
+    hf_cfg = transformers.MimiConfig.from_pretrained(str(hf_dir))
+    cfg = config_from_hf(hf_cfg)
+    params = params_from_safetensors(str(hf_dir / "model.safetensors"), cfg)
+    ecfg = EngineConfig(min_bucket_seconds=1.0, bucket_growth=1.7,
+                        samples_per_batch=96 * 24_000)  # the kit's default
+    audios = [a for a, _ in seed0["hf"]]
+    refs = [r for _, r in seed0["hf"]]
+    cpu = MimiEncoderEngine(params, cfg, ecfg, num_codebooks=QUALIFY_BOOKS,
+                            device="cpu").encode_batch(audios)
+    cpu_seconds = time.perf_counter() - t1
+    card_vs_cpu = code_frames(seed0["card"], cpu)
+    cpu_vs_hf = code_frames(cpu, refs)
+    card_vs_hf = code_frames(seed0["card"], refs)
+    bf16 = [r["bf16_code_match_vs_f32"] for r in table]
+    summary = {
+        "phase": "qualify",
+        "transformers": transformers.__version__,
+        "width": "transformers.MimiConfig() (kyutai/mimi): 8 layers, 512 wide, 2048-entry books",
+        "codebooks": QUALIFY_BOOKS,
+        "weight_seeds": list(QUALIFY_WEIGHT_SEEDS),
+        "frames": frames,
+        "audio_seconds": sum(r["audio_seconds"] for r in table),
+        "flipped_frames": flipped,
+        "flips_per_10k_frames": 1e4 * flipped / frames,
+        "non_tie_flips": sum(r["non_tie_flips"] for r in table),
+        "max_flip_rel_margin": max((f["rel_margin"] for f in flips), default=None),
+        "flips": flips,
+        "per_seed": table,
+        "bf16_code_match_vs_f32": {"per_seed": bf16, "mean": float(np.mean(bf16))},
+        "seed0_card_vs_port_cpu_frames": card_vs_cpu,
+        "seed0_port_cpu_vs_hf_frames": cpu_vs_hf,
+        "seed0_card_vs_hf_frames": card_vs_hf,
+        # transformers 5.x's encode is windowed, the port's config is not:
+        # frames from window_frame on may differ, and are held to the gate
+        "hf_encode_sliding_window": reports[0]["hf_sliding_window"],
+        "window_frame": reports[0]["checks"]["exact_codes"]["window_frame"],
+        "frames_past_window": sum(r["checks"]["exact_codes"]["frames_past_window"]
+                                  for r in reports),
+        "flips_past_window": sum(r["checks"]["exact_codes"]["flips_past_window"]
+                                 for r in reports),
+        "launches": by_engine,
+        "tf32_calls_by_site": dict(sites),
+        "kit_seconds": kit_seconds,
+        "cpu_engine_seconds": cpu_seconds,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(summary)
+    check(card_vs_cpu[0] >= 0.999 * card_vs_cpu[1], f"card vs port CPU frames {card_vs_cpu}")
+    check(cpu_vs_hf[0] >= 0.999 * cpu_vs_hf[1], f"port CPU vs HF frames {cpu_vs_hf}")
+    return by_engine, shapes, rvq_shapes, hf_dir / "model.safetensors"
+
+
+FLEET_SHARDS = ("en000", "en001")
+FLEET_SUBSHARDS, FLEET_ENTRIES = 2, 3  # 24 kHz WAV entries of 10-20 s per sub-shard
+FLEET_WALLTIME = 300.0
+ROOT = Path(__file__).resolve().parent
+
+
+def run_module(argv, timeout=600):
+    """``python -m <argv>`` from the checkout's root: (exit code, stdout)."""
+    out = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout)
+    return out.returncode, out.stdout + out.stderr
+
+
+def phase_fleet(torch, tmp, params_path):
+    """The shard fleet on the card: a two-shard YODAS2 mirror (en000 and
+    en001, two sub-shards of three 24 kHz entries each) tokenized by ``python
+    -m tokenize_audio_tpu_torch.runner.pod_runner run --max-concurrent 2
+    --wait`` over the port's YODAS2 command line (``{shard}``, the qualify
+    phase's checkpoint as ``--params``, a walltime): both shards complete
+    with the single-GPU warning, their hub codes equal to a direct
+    encode_batch on >= 0.999 of frames; a rerun launches no child; the
+    monitor's status (with the manifests' unit counts as expected) and
+    verify agree; the manifests list exactly the two shards; and
+    ``chip_check`` passes on GPU 0 and sees no device at an index with no
+    GPU behind it."""
+    if str(TESTS_DIR) not in sys.path:
+        sys.path.insert(0, str(TESTS_DIR))
+    from torch_yodas2_mirror import Entry, write_mirror
+    from tokenize_audio_tpu_torch.datasets.yodas2 import slice_chunks
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+    from tokenize_audio_tpu_torch.mimi import MimiConfig
+    from tokenize_audio_tpu_torch.mimi.weights import params_from_safetensors
+    from tokenize_audio_tpu_torch.runner import manifests, monitor, pod_runner
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 30)
+    root, hub = Path(tmp) / "fleet_mirror", Path(tmp) / "fleet_hub"
+    prog, work = Path(tmp) / "fleet_progress", Path(tmp) / "fleet_work"
+    entries = {}
+    for shard in FLEET_SHARDS:
+        subshards = []
+        for s in range(FLEET_SUBSHARDS):
+            subshards.append([])
+            for a in range(FLEET_ENTRIES):
+                seconds = float(rng.uniform(10, 20))
+                subshards[-1].append(Entry(f"{shard}-{s}-{a}", tone_pcm(rng, seconds), SR, "wav",
+                                           lognormal_chunks(rng, seconds)))
+        write_mirror(str(root), shard, subshards)
+        entries[shard] = [e for sub in subshards for e in sub]
+    shard_list = Path(tmp) / "fleet_shards.txt"
+    shard_list.write_text("\n".join(FLEET_SHARDS) + "\n")
+
+    def pod_run(tag):
+        return run_module([
+            "tokenize_audio_tpu_torch.runner.pod_runner", "run",
+            "--shard-list", str(shard_list), "--max-concurrent", "2", "--poll-seconds", "0.5",
+            "--run-dir", str(Path(tmp) / tag / "run"), "--log-dir", str(Path(tmp) / tag / "logs"),
+            "--progress-dir", str(prog), "--walltime", str(FLEET_WALLTIME), "--wait", "--",
+            sys.executable, "-m", "tokenize_audio_tpu_torch.datasets.yodas2",
+            "--shard-id", "{shard}", "--source", f"dir:{root}", "--hub", f"dir:{hub}",
+            "--progress-dir", str(prog), "--work-dir", str(work / "{shard}"),
+            "--params", str(params_path),
+        ], timeout=FLEET_WALLTIME + 120)
+
+    t1 = time.perf_counter()
+    rc, out = pod_run("first")
+    run_seconds = time.perf_counter() - t1
+    check(rc == 0, f"pod runner exit {rc}:\n{out[-3000:]}")
+    check("contend for the same chip" in out, f"no single-GPU warning:\n{out[-3000:]}")
+    check("launched=2 skipped=0" in out, f"pod runner launches:\n{out[-3000:]}")
+    reports = {}
+    for shard in FLEET_SHARDS:
+        check(f"shard {shard} exited with 0" in out, f"{shard}: child exit:\n{out[-3000:]}")
+        log = (Path(tmp) / "first" / "logs" / f"{shard}.log").read_text()
+        lines = [ln for ln in log.splitlines() if ln.startswith("{")]
+        check(bool(lines), f"{shard}: no report in its log:\n{log[-3000:]}")
+        reports[shard] = json.loads(lines[-1])
+        check(reports[shard]["processed"] == FLEET_SUBSHARDS and reports[shard]["failed"] == 0
+              and reports[shard]["uploaded"] == FLEET_SUBSHARDS,
+              f"{shard}: report {reports[shard]}")
+
+    # each shard's hub codes against a direct encode_batch in this process
+    cfg = MimiConfig()
+    engine = MimiEncoderEngine(params_from_safetensors(str(params_path), cfg), cfg,
+                               num_codebooks=cfg.num_quantizers)  # as the CLI stores them
+    same, total, chunk_seconds = 0, 0, 0.0
+    for shard in FLEET_SHARDS:
+        got = {}
+        for s in range(FLEET_SUBSHARDS):
+            for e in json.loads((hub / "data" / shard / f"{s:08d}.json").read_text()):
+                got.update({cid: np.asarray(c) for cid, c in e["codes"].items()})
+        ids, segments = [], []
+        for e in entries[shard]:
+            i, seg = slice_chunks(engine.prepare_audio(e.pcm, e.sample_rate), e.text, SR)
+            ids += i
+            segments += seg
+        check(sorted(got) == sorted(ids), f"{shard}: hub chunks {len(got)} vs {len(ids)}")
+        direct = engine.encode_batch(segments, sr=SR)
+        eq, n = code_frames([got[c] for c in ids], direct)
+        same, total = same + eq, total + n
+        chunk_seconds += sum(len(s) for s in segments) / SR
+    check(same >= 0.999 * total, f"fleet hub vs direct frames {same}/{total}")
+    del engine
+
+    rc, rerun = pod_run("rerun")
+    check(rc == 0 and "launched=0 skipped=2" in rerun
+          and all(f"{s}: already completed" in rerun for s in FLEET_SHARDS),
+          f"rerun:\n{rerun[-3000:]}")
+    check(not list((Path(tmp) / "rerun" / "logs").iterdir()), "the rerun launched a child")
+
+    counts_path = Path(tmp) / "fleet_expected.json"
+    with contextlib.redirect_stdout(io.StringIO()) as listed:
+        manifests.main(["shards", "--hub", f"dir:{root}", "--suffix", ".json"])
+        manifests.main(["counts", "--hub", f"dir:{root}", "--out", str(counts_path)])
+    listed = listed.getvalue()
+    counts = json.loads(counts_path.read_text())
+    check(listed.splitlines()[:len(FLEET_SHARDS)] == list(FLEET_SHARDS),
+          f"manifests shards: {listed[:300]}")
+    check(counts == {s: FLEET_SUBSHARDS for s in FLEET_SHARDS}, f"manifests counts: {counts}")
+    with contextlib.redirect_stdout(io.StringIO()) as status:
+        monitor.main(["status", "--progress-dir", str(prog), "--expected", str(counts_path)])
+    status = status.getvalue()
+    rows = monitor.scan_progress_dir(str(prog), counts)
+    check(f"{len(FLEET_SHARDS)}/{len(FLEET_SHARDS)} shards completed" in status
+          and [r["status"] for r in rows] == ["completed"] * len(FLEET_SHARDS),
+          f"monitor status:\n{status}")
+    with contextlib.redirect_stdout(io.StringIO()) as verify:
+        vrc = monitor.main(["verify", "--progress-dir", str(prog), "--hub", f"dir:{hub}",
+                            "--template", "data/{shard}/{unit}.json"])
+    check(vrc == 0 and json.loads(verify.getvalue()) == [], f"monitor verify: {verify.getvalue()}")
+
+    n_gpus = torch.cuda.device_count()
+    runner_gpus = pod_runner._visible_gpu_devices()
+    check(runner_gpus == n_gpus, f"the pod runner counts {runner_gpus} GPUs, torch {n_gpus}")
+    rc_ok, ok_out = run_module(["tokenize_audio_tpu_torch.runner.chip_check", "--chip-env",
+                                "CUDA_VISIBLE_DEVICES=0"], timeout=300)
+    ok = json.loads(ok_out.strip().splitlines()[-1])
+    check(rc_ok == 0 and ok["ok"] and ok["child"]["device0"] == torch.cuda.get_device_name(0),
+          f"chip_check on GPU 0: {ok}")
+    rc_bad, bad_out = run_module(["tokenize_audio_tpu_torch.runner.chip_check", "--chip-env",
+                                  f"CUDA_VISIBLE_DEVICES={n_gpus}"], timeout=300)
+    bad = json.loads(bad_out.strip().splitlines()[-1])
+    check(rc_bad == 1 and not bad["ok"] and bad["child"]["n_devices"] == 0,
+          f"chip_check at GPU {n_gpus} (none there): {bad}")
+    emit({
+        "phase": "fleet",
+        "shards": list(FLEET_SHARDS),
+        "chunk_audio_seconds": chunk_seconds,
+        "runner_gpu_count": runner_gpus,
+        "reports": reports,
+        "pod_runner_wall_seconds": run_seconds,
+        "realtime_factor": chunk_seconds / run_seconds,
+        "vs_direct_frames_equal": same,
+        "vs_direct_frames": total,
+        "manifest_counts": counts,
+        "chip_check_gpu0": ok,
+        "chip_check_no_gpu": bad,
+        "children_launches": "not counted: the children are other processes; their codes are "
+                             "held against a direct encode_batch in this one",
+        "seconds": time.perf_counter() - t0,
+    })
+
+
 def start_extra_build(name: str, src: str, entry: str, argtypes):
     """Start ``nvcc`` on another version of a kernel's source into
     ``lib<name>.so``; returns a function that waits for it and returns its
@@ -2614,6 +3048,11 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_corpora_") as tmp:
             corpora_launches, corpus_shapes, corpus_rvq_shapes = timed(
                 "corpora", phase_corpora, torch, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_qualify_") as tmp:
+            qualify_launches, qualify_shapes, qualify_rvq_shapes, checkpoint = timed(
+                "qualify", phase_qualify, torch, tmp)
+            torch.cuda.empty_cache()  # the fleet's children share the card
+            timed("fleet", phase_fleet, torch, tmp, checkpoint)
         for r in records:
             r["launches"] = launches[r["name"]]
             r["stream_launches"] = stream_launches[r["name"]]
@@ -2622,6 +3061,7 @@ def main(argv=None) -> int:
             r["bench_launches"] = bench_launches[r["name"]]
             r["corpora_launches"] = corpora_launches[r["name"]]
             r["modes_launches"] = {m: n[r["name"]] for m, n in modes_launches.items()}
+            r["qualify_launches"] = {e: n[r["name"]] for e, n in qualify_launches.items()}
         t = time.perf_counter()
         rb = next(r for r in records if r["name"] == "resblock_elu")
         rb["main_path"] = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
@@ -2631,6 +3071,8 @@ def main(argv=None) -> int:
                                         path="bench_path")
         rb["corpus_path"] = phase_replay(torch, corpus_shapes, peak_flops, peak_bw, {},
                                          path="corpus_path")
+        rb["qualify_path"] = phase_replay(torch, qualify_shapes, peak_flops, peak_bw, {},
+                                          path="qualify_path")
         times["replay"] = time.perf_counter() - t
         t = time.perf_counter()
         rq = next(r for r in records if r["name"] == "rvq_quantize")
@@ -2638,7 +3080,8 @@ def main(argv=None) -> int:
                                  ("stream_path", stream_rvq_shapes, {}),
                                  ("yodas2_path", yodas2_rvq_shapes, {}),
                                  ("bench_path", bench_rvq_shapes, {}),
-                                 ("corpus_path", corpus_rvq_shapes, {})):
+                                 ("corpus_path", corpus_rvq_shapes, {}),
+                                 ("qualify_path", qualify_rvq_shapes, {})):
             rq[path] = phase_rvq_replay(torch, found, peak_flops, peak_bw, ext, path=path)["total"]
         times["rvq_replay"] = time.perf_counter() - t
         timed("tie", phase_tie, torch)

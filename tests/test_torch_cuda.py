@@ -535,3 +535,52 @@ def test_drains_on_card_equal_fifo(cuda, policy):
     for g, w in zip(other.encode_batch(audios), fifo.encode_batch(audios)):
         np.testing.assert_array_equal(g, w)
     assert other.stats.frames == fifo.stats.frames
+
+
+def test_chip_check_on_card(cuda):
+    """The pod runner's single-GPU contract holds on GPU 0, and a child
+    given an index with no GPU behind it sees none."""
+    from tokenize_audio_tpu_torch.runner.chip_check import check_chip
+
+    rep = check_chip(chip=0, timeout=300)
+    assert rep["ok"] and rep["injected_env"] == {"CUDA_VISIBLE_DEVICES": "0"}, rep
+    assert rep["child"]["n_devices"] == 1 and rep["child"]["compute_ok"]
+    assert rep["child"]["device0"] == torch.cuda.get_device_name(0)
+    bad = check_chip(chip=torch.cuda.device_count(), timeout=300)
+    assert not bad["ok"] and bad["child"]["n_devices"] == 0, bad
+
+
+def _tiny_hf_oracle(seed: int = 0):
+    """A seeded random-weight transformers MimiModel at TINY's widths (the
+    kit's oracle recipe, as tests/mimi_fixtures.make_oracle)."""
+    from transformers import MimiConfig as HFMimiConfig
+
+    from tokenize_audio_tpu_torch import qualify
+
+    fields = ("num_filters", "hidden_size", "num_hidden_layers", "intermediate_size",
+              "num_attention_heads", "num_key_value_heads", "head_dim", "codebook_size",
+              "codebook_dim", "vector_quantization_hidden_dimension", "num_quantizers",
+              "upsample_groups")
+    return qualify._random_oracle(seed, HFMimiConfig(**{f: getattr(TINY, f) for f in fields}))
+
+
+def test_qualify_on_card_equals_cpu(cuda):
+    """The kit at the tiny config with the port on the card: the same
+    report as with the port on the CPU, the resblock and RVQ kernels
+    launched, every check passing."""
+    from tokenize_audio_tpu_torch import qualify
+
+    model = _tiny_hf_oracle()
+    kw = dict(model=model, audio_seeds=(0, 1), n_utts=4, max_seconds=2.0,
+              engine_cfg=EngineConfig(batch_size=4, min_bucket_seconds=0.5,
+                                      max_chunk_seconds=4.0))
+    want = qualify.run_qualification(device="cpu", **kw)
+    r0, s0 = rvq.rvq_quantize.launches, seanet.resblock_elu.launches
+    got = qualify.run_qualification(**kw)
+    assert rvq.rvq_quantize.launches > r0 and seanet.resblock_elu.launches > s0
+    assert got["passed"] and want["passed"]
+    assert got["device"] == torch.cuda.get_device_name(0)
+    assert got["checks"]["conversion"] == want["checks"]["conversion"]
+    for key in ("frames", "flipped_frames", "flips", "per_seed", "non_tie_flips"):
+        assert got["checks"]["exact_codes"][key] == want["checks"]["exact_codes"][key], key
+    assert got["checks"]["per_layer"]["ok"]

@@ -51,7 +51,9 @@ class MimiConfig:
     # MimiTransformerModel masks via create_causal_mask (plain causal), the
     # eager attention ignores self.sliding_window, and MimiModel.encode is
     # one _encode_frame over the whole input. use_sliding_window=True opts
-    # into the original kyutai semantics.
+    # into the original kyutai semantics, which transformers 5.x's encode
+    # applies (create_sliding_window_causal_mask); the qualification kit
+    # reports the installed version's mode and its flips past the window.
     use_sliding_window: bool = False
     # RVQ backend: "kernel" (the hand-written CUDA kernel,
     # ops/cuda/rvq.py — its plain PyTorch version on a CPU tensor) or

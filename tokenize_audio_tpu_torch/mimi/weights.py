@@ -273,6 +273,13 @@ def random_params(cfg: MimiConfig | None = None, seed: int = 0) -> Dict[str, Any
     return params
 
 
+def _hf_rope_theta(hf_config) -> float:
+    # transformers 4.x keeps ``rope_theta``; 5.x moved it into
+    # ``rope_parameters`` (configuration_mimi.py, MimiConfig.rope_parameters)
+    theta = getattr(hf_config, "rope_theta", None)
+    return theta if theta is not None else hf_config.rope_parameters["rope_theta"]
+
+
 def config_from_hf(hf_config) -> MimiConfig:
     """Map a ``transformers.MimiConfig`` onto ours."""
     return MimiConfig(
@@ -303,7 +310,7 @@ def config_from_hf(hf_config) -> MimiConfig:
         hidden_act=hf_config.hidden_act,
         max_position_embeddings=hf_config.max_position_embeddings,
         norm_eps=hf_config.norm_eps,
-        rope_theta=hf_config.rope_theta,
+        rope_theta=_hf_rope_theta(hf_config),
         sliding_window=hf_config.sliding_window,
         layer_scale_initial_scale=hf_config.layer_scale_initial_scale,
     )

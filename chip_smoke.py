@@ -10,7 +10,7 @@ the run (non-zero exit, no final result line) if its check fails:
 
   1. device   — the card's name and power limit (nvidia-smi), and which
                 optional libraries (pandas, pyarrow, transformers,
-                huggingface_hub, safetensors) import on this machine
+                tokenizers, huggingface_hub, safetensors) import on this machine
                 (information only);
   2. build    — both kernels compiled for sm_90a, with nvcc's ptxas report;
   3. kernels  — each kernel against its plain PyTorch version at large
@@ -142,19 +142,36 @@ the run (non-zero exit, no final result line) if its check fails:
                 of frames), a rerun that launches nothing, the monitor's
                 status and verify, the manifests' shards and unit counts,
                 and ``chip_check`` on GPU 0 and at an index with no GPU;
+  9d. downstream — the chain downstream of the encoder, fed by the card: the
+                YODAS2 command line (default flags: kernel backends, 32
+                codebooks) on a fresh 2 x 24-entry mirror, with both kernels'
+                launches and shapes (the ``downstream_path``); then, each
+                through its command line in process: the pretrain converter
+                and a rerun that uploads nothing, validate (0 bad rows), every
+                document's audio spans against the hub's codes frame for
+                frame (first 8 books), the five derivative modes (semantic =
+                acoustic[::8]), CVSS on two languages of the card's code
+                strings, the sampler (its .npy = the hub's codes cut to 8
+                books), the trainer (every sampled code string round-trips),
+                tokenizer surgery resizing a tiny causal LM on the card
+                against the CPU (kept rows bit-equal, new rows within 1e-6 x
+                max|w|), count_rows and estimate_tokens over every row; the
+                installed transformers and tokenizers, and what they load;
  10. replay   — the resblock kernel at each shape recorded on the main path,
-                the YODAS2 path, the bench, the corpora and the kit: agreement
-                with its plain version, CUDA-event times and the FP32 bound,
-                summed per C as count x ms (the ``main_path``,
-                ``yodas2_path``, ``bench_path``, ``corpus_path`` and
-                ``qualify_path`` entries of its record);
+                the YODAS2 path, the bench, the corpora, the kit and the
+                downstream encode: agreement with its plain version,
+                CUDA-event times and the FP32 bound, summed per C as count x
+                ms (the ``main_path``, ``yodas2_path``, ``bench_path``,
+                ``corpus_path``, ``qualify_path`` and ``downstream_path``
+                entries of its record);
  11. rvq_replay — the RVQ kernel at each recorded (N, K) of the main,
-                stream, YODAS2, bench, corpus and qualify paths, on the
-                model's codebooks: code agreement with its plain version
-                (first divergences must be near-ties), CUDA-event times and
-                the FP32 bound, summed as count x ms (the ``main_path``,
-                ``stream_path``, ``yodas2_path``, ``bench_path``,
-                ``corpus_path`` and ``qualify_path`` entries of its record);
+                stream, YODAS2, bench, corpus, qualify and downstream paths,
+                on the model's codebooks: code agreement with its plain
+                version (first divergences must be near-ties), CUDA-event
+                times and the FP32 bound, summed as count x ms (the
+                ``main_path``, ``stream_path``, ``yodas2_path``,
+                ``bench_path``, ``corpus_path``, ``qualify_path`` and
+                ``downstream_path`` entries of its record);
  12. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
@@ -339,7 +356,8 @@ def rvq_max_active_clusters():
     return list(out)
 
 
-OPTIONAL_LIBRARIES = ("pandas", "pyarrow", "transformers", "huggingface_hub", "safetensors")
+OPTIONAL_LIBRARIES = ("pandas", "pyarrow", "transformers", "tokenizers", "huggingface_hub",
+                      "safetensors")
 _IMPORT_PROBE = """
 import importlib, json
 out = {}
@@ -2779,6 +2797,361 @@ def phase_fleet(torch, tmp, params_path):
     })
 
 
+DOWNSTREAM_SEED = SEED + 40
+DOWNSTREAM_PARQUET_ROWS = 40  # the mirror's 96 documents: two rollovers and a final flush
+DOWNSTREAM_LANGS = ("fr", "de")
+DOWNSTREAM_CVSS_ROWS = 8  # per language
+DOWNSTREAM_VOCAB = 8 * 2048 + 64  # the code alphabet, the specials and merges within a frame
+SURGERY_LM = dict(vocab_size=16, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=4)
+SURGERY_ATOL = 1e-6  # x max|w|: card vs CPU on the new rows, whose mean is reduced on each
+
+
+def in_process(module, argv):
+    """``module.main(argv)`` in this process, its stdout kept off this
+    script's: (return value, stdout)."""
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        ret = module.main(argv)
+    return ret, out.getvalue()
+
+
+def file_stamps(root) -> dict:
+    """relative path -> (size, mtime_ns) of every file under ``root``."""
+    root = Path(root)
+    return {str(p.relative_to(root)): (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def parquet_rows(read_parquet, root) -> list:
+    return [r for p in sorted(Path(root).rglob("*.parquet")) for r in read_parquet(str(p))]
+
+
+class EmbeddingSpy:
+    """Records the device and dtype of the model each call of
+    ``surgery.extend_model_embeddings`` resizes."""
+
+    def __init__(self, surgery):
+        self.surgery, self.seen = surgery, []
+
+    def __enter__(self):
+        self.orig = orig = self.surgery.extend_model_embeddings
+
+        def spy(model, *args, **kwargs):
+            w = model.get_input_embeddings().weight
+            self.seen.append({"device": str(w.device), "dtype": str(w.dtype)})
+            return orig(model, *args, **kwargs)
+
+        self.surgery.extend_model_embeddings = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.surgery.extend_model_embeddings = self.orig
+
+
+def surgery_run(torch, tmp, chunk_strs):
+    """The surgery command line on a tiny causal LM (SURGERY_LM, seeded, no
+    download) and a tiny codec tokenizer: rename, BOS, the 8 x 2048 audio
+    alphabet and the pipeline specials, the model resized on the card and
+    then with ``--device cpu``. Kept rows bit-equal to the base model's, the
+    two runs' tokenizers and vocab sizes equal, every other tensor equal,
+    and the new rows within SURGERY_ATOL x max|w| of each other."""
+    from safetensors.torch import load_file
+    from transformers import AutoModelForCausalLM, AutoTokenizer, LlamaConfig, LlamaForCausalLM
+
+    from tokenize_audio_tpu_torch.bpe import surgery, trainer
+    from tokenize_audio_tpu_torch.config import UNICODE_OFFSET
+
+    tmp = Path(tmp)
+    rng = np.random.default_rng(DOWNSTREAM_SEED + 1)
+    (tmp / "base_codes").mkdir(parents=True)
+    arrays = np.empty(4, dtype=object)
+    arrays[:] = [rng.integers(0, 4, size=(2, 16)).astype(np.uint16) for _ in range(4)]
+    np.save(str(tmp / "base_codes" / "c.npy"), arrays, allow_pickle=True)
+    base = trainer.CodecBPETrainer(2, 4, vocab_size=2 * 4 + 2, eos_token="<|endoftext|>",
+                                   unk_token="<unk>", max_token_codebook_ngrams=0,
+                                   unicode_offset=UNICODE_OFFSET).train(str(tmp / "base_codes"))
+    base.save_pretrained(str(tmp / "base_tok"))
+    torch.manual_seed(DOWNSTREAM_SEED)
+    LlamaForCausalLM(LlamaConfig(**SURGERY_LM)).save_pretrained(str(tmp / "lm"))
+    lm = load_file(str(tmp / "lm" / "model.safetensors"))
+    runs = {}
+    with EmbeddingSpy(surgery) as spy:
+        for tag, device in (("card", []), ("cpu", ["--device", "cpu"])):
+            t = time.perf_counter()
+            _, out = in_process(surgery, [
+                "--tokenizer", str(tmp / "base_tok"), "--out-dir", str(tmp / f"tok_{tag}"),
+                "--rename", "<|endoftext|>=<|end_of_text|>", "--bos", "<|begin_of_text|>",
+                "--add-audio-alphabet", "--pipeline-specials",
+                "--model", str(tmp / "lm"), "--model-out", str(tmp / f"lm_{tag}"), *device])
+            runs[tag] = {"report": json.loads(out), "seconds": time.perf_counter() - t,
+                         "tensors": load_file(str(tmp / f"lm_{tag}" / "model.safetensors")),
+                         "tokenizer": json.loads((tmp / f"tok_{tag}" / "tokenizer.json")
+                                                 .read_text())}
+    card, cpu = runs["card"], runs["cpu"]
+    check([s["device"] for s in spy.seen] == ["cuda:0", "cpu"],
+          f"surgery resized the model on {spy.seen}")
+    want = len(base) + 1 + 8 * 2048 + 4  # BOS, alphabet, specials; the rename adds none
+    for tag, r in runs.items():
+        rep = r["report"]
+        check(rep["vocab_size"] == rep["model_vocab_size"] == want,
+              f"surgery {tag}: vocab {rep} != {want}")
+    check(card["tokenizer"]["model"] == cpu["tokenizer"]["model"]
+          and card["tokenizer"]["added_tokens"] == cpu["tokenizer"]["added_tokens"],
+          "surgery: the card's tokenizer differs from the CPU's")
+    n_copy, worst, scale = SURGERY_LM["vocab_size"], 0.0, 0.0
+    check(sorted(card["tensors"]) == sorted(cpu["tensors"]), "surgery: tensor names differ")
+    for name, w in cpu["tensors"].items():
+        c = card["tensors"][name]
+        check(c.dtype == w.dtype and c.shape == w.shape, f"surgery {name}: {c.shape} vs {w.shape}")
+        if name in ("model.embed_tokens.weight", "lm_head.weight"):
+            check(w.shape[0] == want, f"surgery {name}: {w.shape[0]} rows")
+            for got in (c, w):
+                check(torch.equal(got[:n_copy], lm[name][:n_copy]), f"surgery {name}: kept rows")
+            worst = max(worst, float((c[n_copy:] - w[n_copy:]).abs().max()))
+            scale = max(scale, float(w.abs().max()))
+        else:
+            check(torch.equal(c, w) and torch.equal(w, lm[name]), f"surgery {name} changed")
+    check(worst <= SURGERY_ATOL * scale,
+          f"surgery: card vs CPU new rows {worst} > {SURGERY_ATOL} x {scale}")
+    # what from_pretrained loads without a dtype (transformers 5 reads the
+    # checkpoint's, "auto"; 4.x float32), a float32 and a bfloat16 checkpoint
+    loaded = {"float32_checkpoint": str(AutoModelForCausalLM.from_pretrained(
+        str(tmp / "lm")).dtype)}
+    LlamaForCausalLM(LlamaConfig(**SURGERY_LM)).to(torch.bfloat16).save_pretrained(
+        str(tmp / "lm_bf16"))
+    loaded["bfloat16_checkpoint"] = str(AutoModelForCausalLM.from_pretrained(
+        str(tmp / "lm_bf16")).dtype)
+    tok = AutoTokenizer.from_pretrained(str(tmp / "tok_card"))
+    ids = tok.encode(tok.bos_token + chunk_strs[0] + "<|audio_end|>")
+    check(tok.decode(ids) == tok.bos_token + chunk_strs[0] + "<|audio_end|>",
+          "surgery: the extended tokenizer does not round-trip a code string")
+    return {
+        "vocab_size": want, "kept_rows": n_copy, "new_rows": want - n_copy,
+        "max_abs_diff_new_rows": worst, "max_abs_w": scale, "atol": SURGERY_ATOL * scale,
+        "devices": spy.seen, "from_pretrained_dtype": loaded,
+        "tokenizer_class": type(tok).__name__,
+        "tokenizer_files": sorted(p.name for p in (tmp / "tok_card").iterdir()),
+        "model_files": sorted(p.name for p in (tmp / "lm_card").iterdir()),
+        "seconds": {tag: r["seconds"] for tag, r in runs.items()},
+    }
+
+
+def phase_downstream(torch, tmp):
+    """The chain downstream of the encoder, fed by the card: the port's
+    YODAS2 command line on a fresh mirror (make_yodas2_mirror, its own seed;
+    default flags: kernel backends, 32 codebooks) with both kernels'
+    launches and shapes (the ``downstream_path``); then, each through its
+    command line in process, the pretrain converter (and a rerun that
+    uploads nothing), validate (0 bad rows), every document's audio spans
+    against the hub's codes frame for frame (first 8 books), the five
+    derivative modes (semantic = acoustic[::8]), CVSS on two languages of
+    the card's code strings, the sampler (its .npy = the hub's codes cut to
+    8 books) and the trainer (every sampled code string round-trips),
+    surgery on the card against the CPU, count_rows and estimate_tokens
+    over every row. Returns the launches and the shapes."""
+    if str(TESTS_DIR) not in sys.path:
+        sys.path.insert(0, str(TESTS_DIR))
+    from torch_yodas2_mirror import write_mirror
+    from tokenize_audio_tpu_torch.analytics import count_rows, estimate_tokens, validate
+    from tokenize_audio_tpu_torch.bpe import sampler, trainer
+    from tokenize_audio_tpu_torch.core.codes import chars_to_codes, codes_to_chars
+    from tokenize_audio_tpu_torch.datasets import cvss, derivatives, pretrain_converter
+    from tokenize_audio_tpu_torch.datasets.parquet_utils import read_parquet, write_parquet
+    from tokenize_audio_tpu_torch.hub import LocalHub
+
+    t0 = time.perf_counter()
+    tmp, seconds = Path(tmp), {}
+
+    def stage(name, t):
+        seconds[name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    # the feeding encode, on the card
+    subshards = make_yodas2_mirror(np.random.default_rng(DOWNSTREAM_SEED))
+    root = write_mirror(str(tmp / "mirror"), YODAS2_SHARD, subshards)
+    t = stage("mirror", t0)
+    captured = {}
+    with KernelSpy() as kernels:
+        report, hub, _, _ = run_yodas2_cli(torch, root, tmp, "downstream", captured)
+        launches = kernels.launches()
+    shapes, rvq_shapes = kernels.shapes, kernels.rvq_shapes
+    audio_seconds = captured.pop("downstream").stats.audio_seconds
+    check(all(n > 0 for n in launches.values()), f"kernel launches in the encode: {launches}")
+    check(sum(shapes.values()) == launches["resblock_elu"]
+          and sum(rvq_shapes.values()) == launches["rvq_quantize"],
+          f"downstream shapes vs launches {launches}")
+    sids = [f"{s:08d}" for s in range(YODAS2_SUBSHARDS)]
+    entries = []  # (audio_id, [(chunk id, (32, T) codes)]) in the hub's order
+    for sid in sids:
+        for e in json.loads((Path(hub) / "data" / YODAS2_SHARD / f"{sid}.json").read_text()):
+            entries.append((e["audio_id"], [(cid, np.asarray(c)) for cid, c in e["codes"].items()
+                                            if c]))
+    chunks = [c for _, cs in entries for _, c in cs]
+    check(all(c.shape[0] == 32 for c in chunks), "the hub's codes are not 32 books")
+    chunk_strs = [codes_to_chars(c[:8], 2048, unicode_offset=0xE000) for c in chunks]
+    frames = sum(c.shape[1] for c in chunks)
+    t = stage("encode", t)
+
+    # pretrain parquet, a rerun, validate, spans against the hub
+    pre = tmp / "pretrain"
+    conv_argv = ["--shard-id", YODAS2_SHARD, "--subshard-ids", ",".join(sids),
+                 "--source-hub", f"dir:{hub}/data", "--target-hub", f"dir:{pre}",
+                 "--work-dir", str(tmp / "conv_work"), "--progress-dir", str(tmp / "conv_prog"),
+                 "--parquet-rows", str(DOWNSTREAM_PARQUET_ROWS)]
+    conv = json.loads(in_process(pretrain_converter, conv_argv)[1])
+    check(conv == {"processed": len(sids), "skipped": 0, "failed": 0}, f"converter {conv}")
+    stamps, rows = file_stamps(pre), parquet_rows(read_parquet, pre)
+    n_docs = 2 * len(entries)
+    check(len(rows) == n_docs and len(stamps) == -(-n_docs // DOWNSTREAM_PARQUET_ROWS),
+          f"converter: {len(rows)} rows in {len(stamps)} files for {len(entries)} entries")
+    t = stage("convert", t)
+    rerun = json.loads(in_process(pretrain_converter, conv_argv)[1])
+    check(rerun == {"processed": 0, "skipped": len(sids), "failed": 0}, f"converter rerun {rerun}")
+    check(file_stamps(pre) == stamps, "the converter's rerun uploaded")
+    check(sorted(map(json.dumps, parquet_rows(read_parquet, pre))) == sorted(map(json.dumps, rows)),
+          "the converter's rerun changed the rows")
+    t = stage("convert_rerun", t)
+    rc, out = in_process(validate, ["--hub", f"dir:{pre}", "--prefix", "data/"])
+    qa = json.loads(out)
+    check(rc == 0 and sum(r["bad_rows"] for r in qa.values()) == 0
+          and sum(r["rows"] for r in qa.values()) == n_docs, f"validate: rc {rc}, {qa}")
+    by_id = dict(entries)
+    span_frames = 0
+    for r in rows:
+        aid, kind = r["id"].rsplit("_", 1)
+        spans = AUDIO_SPAN.findall(r["text"])
+        check(len(spans) == len(by_id[aid]), f"{r['id']}: {len(spans)} audio spans")
+        for span, (cid, c) in zip(spans, by_id[aid]):
+            got = chars_to_codes(span, 8, 2048, return_tensors="np", unicode_offset=0xE000)
+            check(np.array_equal(np.asarray(got), c[:8]), f"{r['id']} {cid}: codes differ")
+            span_frames += c.shape[1]
+    t = stage("validate_and_spans", t)
+
+    # the five derivative modes
+    derived = {}
+    for mode in ("asr", "acoustic", "semantic", "tts0", "fix"):
+        rep, _ = in_process(derivatives, [
+            "--mode", mode, "--source-hub", f"dir:{pre}", "--target-hub", f"dir:{tmp / mode}",
+            "--progress-dir", str(tmp / f"prog_{mode}"), "--work-dir", str(tmp / f"work_{mode}")])
+        check(rep.processed == len(stamps) and rep.failed == 0, f"derivatives {mode}: {rep}")
+        derived[mode] = {r["id"]: r["text"] for r in parquet_rows(read_parquet, tmp / mode)}
+    ids = {k: sorted(r["id"][:-6] for r in rows if r["id"].endswith(k)) for k in ("_type1", "_type2")}
+    for mode, kind in (("asr", "_type2"), ("acoustic", "_type2"), ("semantic", "_type2"),
+                       ("tts0", "_type1")):
+        check(sorted(derived[mode]) == ids[kind], f"derivatives {mode}: ids")
+    check(len(derived["fix"]) == n_docs, "derivatives fix: rows")
+    for rid, text in derived["semantic"].items():
+        acoustic = AUDIO_SPAN.findall(derived["acoustic"][rid])
+        check("<|text_start|>" not in derived["acoustic"][rid], f"acoustic {rid} keeps text")
+        check(AUDIO_SPAN.findall(text) == [s[::8] for s in acoustic], f"semantic {rid}")
+    check(all("<|text_start|>[0]" in text for text in derived["tts0"].values()), "tts0 tags")
+    t = stage("derivatives", t)
+
+    # CVSS: two languages of S2ST rows made of the card's code strings
+    src = LocalHub(str(tmp / "cvss_src"))
+    s2st = {}
+    for li, lang in enumerate(DOWNSTREAM_LANGS):
+        s2st[lang] = [{"id": f"{lang}-{i}", "original_text": f"{lang} text {i}",
+                       "original_audio_str": chunk_strs[(2 * i + li) % len(chunk_strs)],
+                       "translated_text": f"english text {i}",
+                       "translated_audio_str": chunk_strs[(2 * i + li + 1) % len(chunk_strs)]}
+                      for i in range(DOWNSTREAM_CVSS_ROWS)]
+        src.upload_file(write_parquet(s2st[lang], str(tmp / f"{lang}.parquet")),
+                        f"{lang}/test.parquet")
+    _, out = in_process(cvss, ["--source-hub", f"dir:{tmp / 'cvss_src'}",
+                               "--target-hub", f"dir:{tmp / 'cvss'}",
+                               "--work-dir", str(tmp / "cvss_work"),
+                               "--languages", *DOWNSTREAM_LANGS, "--splits", "test"])
+    cvss_report = json.loads(out)
+    n_cvss = DOWNSTREAM_CVSS_ROWS * len(DOWNSTREAM_LANGS)
+    check(cvss_report == [{"split": "test", "status": "processed", "rows": n_cvss}],
+          f"cvss {cvss_report}")
+    combined = read_parquet(str(tmp / "cvss" / "data" / "test.parquet"))
+    want = [(r["id"], lang, cvss.combine_row(r, lang)) for lang in DOWNSTREAM_LANGS
+            for r in s2st[lang]]
+    check([(r["id"], r["lang"], r["text"]) for r in combined] == want, "cvss rows")
+    t = stage("cvss", t)
+
+    # the sampler's corpus and the trainer's tokenizer
+    npys, tok_dir = tmp / "npys", tmp / "tokenizer"
+    sample = json.loads(in_process(sampler, ["--hub", f"dir:{hub}", "--out-dir", str(npys),
+                                            "--per-shard", str(len(sids)), "--seed", "42",
+                                            "--num-codebooks", "8"])[1])
+    check(sample == {"processed": len(sids), "skipped": 0, "failed": 0}, f"sampler {sample}")
+    corpus = []
+    for sid in sids:
+        corpus += list(np.load(str(npys / f"{YODAS2_SHARD}_{sid}.npy"), allow_pickle=True))
+    check(len(corpus) == len(chunks) and all(
+        a.dtype == np.uint16 and np.array_equal(a, c[:8]) for a, c in zip(corpus, chunks)),
+        "the sampler's .npy differ from the hub's codes")
+    t = stage("sample", t)
+    trained = json.loads(in_process(trainer, [
+        "--codes-dir", str(npys), "--out-dir", str(tok_dir), "--num-codebooks", "8",
+        "--codebook-size", "2048", "--vocab-size", str(DOWNSTREAM_VOCAB),
+        "--max-token-codebook-ngrams", "1", "--unicode-offset", "0xE000",
+        "--pipeline-specials"])[1])
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(str(tok_dir))
+    tok_json = json.loads((tok_dir / "tokenizer.json").read_text())
+    strs = [codes_to_chars(a, 2048, unicode_offset=0xE000) for a in corpus]
+    check(all(tok.decode(tok.encode(s)) == s for s in strs),
+          "a sampled code string does not survive encode then decode")
+    check(trained["vocab_size"] == len(tok) > 8 * 2048, f"trainer {trained}, len {len(tok)}")
+    t = stage("train", t)
+
+    surgery_report = surgery_run(torch, tmp / "surgery", chunk_strs)
+    t = stage("surgery", t)
+
+    # count_rows and estimate_tokens over every row
+    counted = json.loads(in_process(count_rows, ["--hub", f"dir:{pre}", "--prefix", "data/",
+                                                "--group-depth", "0"])[1])
+    check(counted == {"all": {"files": len(stamps), "rows": n_docs}}, f"count_rows {counted}")
+    exact = sum(len(tok.encode(r["text"])) for r in rows)
+    _, out = in_process(estimate_tokens, [
+        "--hub", f"dir:{pre}", "--prefix", "data/", "--tokenizer", str(tok_dir),
+        "--sample-rows", str(len(stamps) * n_docs), "--output", str(tmp / "estimate.json")])
+    est = json.loads(out)["all"]
+    # every row sampled; the estimator's int(mean x rows) can truncate the
+    # float product one below the exact count
+    check(est["total_rows"] == est["sampled_rows"] == n_docs
+          and est["estimated_total_tokens"] == int(exact / n_docs * n_docs)
+          and exact - est["estimated_total_tokens"] in (0, 1), f"estimate {est} vs exact {exact}")
+    stage("analytics", t)
+
+    import tokenizers
+    import transformers
+
+    emit({
+        "phase": "downstream",
+        "yodas2_report": report,
+        "entries": len(entries),
+        "chunks": len(chunks),
+        "frames": frames,
+        "audio_seconds": audio_seconds,
+        "launches": launches,
+        "converter": {"report": conv, "rerun": rerun, "rows": n_docs, "files": len(stamps),
+                      "parquet_rows": DOWNSTREAM_PARQUET_ROWS},
+        "validate_bad_rows": 0,
+        "span_frames_checked": span_frames,
+        "derivatives_rows": {m: len(d) for m, d in derived.items()},
+        "cvss_rows": len(combined),
+        "sampler": {"report": sample, "arrays": len(corpus)},
+        "trainer": {"vocab_size": trained["vocab_size"],
+                    "merges": len(tok_json["model"]["merges"]),
+                    "round_trips": len(strs), "tokenizer_class": type(tok).__name__},
+        "surgery": surgery_report,
+        "count_rows": counted,
+        "estimate": est,
+        "exact_tokens": exact,
+        "transformers": transformers.__version__,
+        "tokenizers": tokenizers.__version__,
+        "stage_seconds": seconds,
+        "seconds": time.perf_counter() - t0,
+    })
+    return launches, shapes, rvq_shapes
+
+
 def start_extra_build(name: str, src: str, entry: str, argtypes):
     """Start ``nvcc`` on another version of a kernel's source into
     ``lib<name>.so``; returns a function that waits for it and returns its
@@ -3053,6 +3426,9 @@ def main(argv=None) -> int:
                 "qualify", phase_qualify, torch, tmp)
             torch.cuda.empty_cache()  # the fleet's children share the card
             timed("fleet", phase_fleet, torch, tmp, checkpoint)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_downstream_") as tmp:
+            downstream_launches, downstream_shapes, downstream_rvq_shapes = timed(
+                "downstream", phase_downstream, torch, tmp)
         for r in records:
             r["launches"] = launches[r["name"]]
             r["stream_launches"] = stream_launches[r["name"]]
@@ -3062,6 +3438,7 @@ def main(argv=None) -> int:
             r["corpora_launches"] = corpora_launches[r["name"]]
             r["modes_launches"] = {m: n[r["name"]] for m, n in modes_launches.items()}
             r["qualify_launches"] = {e: n[r["name"]] for e, n in qualify_launches.items()}
+            r["downstream_launches"] = downstream_launches[r["name"]]
         t = time.perf_counter()
         rb = next(r for r in records if r["name"] == "resblock_elu")
         rb["main_path"] = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
@@ -3073,6 +3450,8 @@ def main(argv=None) -> int:
                                          path="corpus_path")
         rb["qualify_path"] = phase_replay(torch, qualify_shapes, peak_flops, peak_bw, {},
                                           path="qualify_path")
+        rb["downstream_path"] = phase_replay(torch, downstream_shapes, peak_flops, peak_bw, {},
+                                             path="downstream_path")
         times["replay"] = time.perf_counter() - t
         t = time.perf_counter()
         rq = next(r for r in records if r["name"] == "rvq_quantize")
@@ -3081,7 +3460,8 @@ def main(argv=None) -> int:
                                  ("yodas2_path", yodas2_rvq_shapes, {}),
                                  ("bench_path", bench_rvq_shapes, {}),
                                  ("corpus_path", corpus_rvq_shapes, {}),
-                                 ("qualify_path", qualify_rvq_shapes, {})):
+                                 ("qualify_path", qualify_rvq_shapes, {}),
+                                 ("downstream_path", downstream_rvq_shapes, {})):
             rq[path] = phase_rvq_replay(torch, found, peak_flops, peak_bw, ext, path=path)["total"]
         times["rvq_replay"] = time.perf_counter() - t
         timed("tie", phase_tie, torch)

@@ -542,8 +542,13 @@ def test_chip_check_on_card(cuda):
     given an index with no GPU behind it sees none."""
     from tokenize_audio_tpu_torch.runner.chip_check import check_chip
 
+    import os
+
     rep = check_chip(chip=0, timeout=300)
-    assert rep["ok"] and rep["injected_env"] == {"CUDA_VISIBLE_DEVICES": "0"}, rep
+    # GPU 0 of this process's allocation: the first entry of its own
+    # CUDA_VISIBLE_DEVICES where that is set
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
+    assert rep["ok"] and rep["injected_env"] == {"CUDA_VISIBLE_DEVICES": first}, rep
     assert rep["child"]["n_devices"] == 1 and rep["child"]["compute_ok"]
     assert rep["child"]["device0"] == torch.cuda.get_device_name(0)
     bad = check_chip(chip=torch.cuda.device_count(), timeout=300)
@@ -584,3 +589,50 @@ def test_qualify_on_card_equals_cpu(cuda):
     for key in ("frames", "flipped_frames", "flips", "per_seed", "non_tie_flips"):
         assert got["checks"]["exact_codes"][key] == want["checks"]["exact_codes"][key], key
     assert got["checks"]["per_layer"]["ok"]
+
+
+def test_surgery_on_card_equals_cpu(cuda, tmp_path, capsys):
+    """bpe.surgery's command line resizes a tiny causal LM on the card (no
+    ``--device``) and on the CPU: the same report and tokenizer, the kept
+    rows and every other tensor bit-equal, the new rows (noise from the CPU
+    generator, the mean reduced on each device) within 1e-6 x max|w|."""
+    from safetensors.torch import load_file
+    from transformers import LlamaConfig, LlamaForCausalLM
+
+    from tokenize_audio_tpu_torch.bpe import surgery
+    from tokenize_audio_tpu_torch.bpe.trainer import CodecBPETrainer
+
+    codes = np.empty(2, dtype=object)
+    codes[:] = [np.arange(32, dtype=np.uint16).reshape(2, 16) % 4 for _ in range(2)]
+    (tmp_path / "codes").mkdir()
+    np.save(str(tmp_path / "codes" / "c.npy"), codes, allow_pickle=True)
+    CodecBPETrainer(2, 4, vocab_size=10, eos_token="<|endoftext|>", unk_token="<unk>",
+                    max_token_codebook_ngrams=0, unicode_offset=0x4E00).train(
+        str(tmp_path / "codes")).save_pretrained(str(tmp_path / "tok"))
+    torch.manual_seed(0)
+    LlamaForCausalLM(LlamaConfig(vocab_size=16, hidden_size=64, intermediate_size=128,
+                                 num_hidden_layers=1, num_attention_heads=4,
+                                 num_key_value_heads=4)).save_pretrained(str(tmp_path / "lm"))
+    reports = {}
+    for tag, device in (("card", []), ("cpu", ["--device", "cpu"])):
+        surgery.main(["--tokenizer", str(tmp_path / "tok"), "--out-dir", str(tmp_path / f"t_{tag}"),
+                      "--add-audio-alphabet", "--num-codebooks", "2", "--codebook-size", "64",
+                      "--unicode-offset", "0xE000", "--pipeline-specials",
+                      "--model", str(tmp_path / "lm"), "--model-out", str(tmp_path / f"m_{tag}"),
+                      *device])
+        rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        reports[tag] = (rep["vocab_size"], rep["model_vocab_size"])
+    assert reports["card"] == reports["cpu"] == (10 + 128 + 4,) * 2
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        assert (json.loads((tmp_path / "t_card" / name).read_text())
+                == json.loads((tmp_path / "t_cpu" / name).read_text()))
+    base = load_file(str(tmp_path / "lm" / "model.safetensors"))
+    card = load_file(str(tmp_path / "m_card" / "model.safetensors"))
+    cpu = load_file(str(tmp_path / "m_cpu" / "model.safetensors"))
+    for name, w in cpu.items():
+        if name in ("model.embed_tokens.weight", "lm_head.weight"):
+            assert torch.equal(card[name][:16], base[name][:16])
+            assert torch.equal(w[:16], base[name][:16])
+            assert (card[name][16:] - w[16:]).abs().max() <= 1e-6 * w.abs().max()
+        else:
+            assert torch.equal(card[name], w), name

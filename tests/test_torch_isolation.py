@@ -1,5 +1,6 @@
 """PyTorch port, isolation: no module of the port (nor chip_smoke.py) pulls in
-JAX or the JAX package, and the kernel build fails loudly without nvcc."""
+JAX or the JAX package, or loads tokenizers or transformers on import, and
+the kernel build fails loudly without nvcc."""
 
 import os
 import subprocess
@@ -22,8 +23,10 @@ bad = sorted(
     if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
     or m == "tokenize_audio_tpu" or m.startswith("tokenize_audio_tpu.")
 )
+heavy = sorted(m for m in sys.modules if m.split(".")[0] in ("transformers", "tokenizers"))
 print(",".join(names))
 print(bad)
+print(heavy)
 """
 
 
@@ -34,17 +37,23 @@ def test_port_imports_no_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    names, bad = out.stdout.strip().splitlines()[-2:]
+    names, bad, heavy = out.stdout.strip().splitlines()[-3:]
     names = names.split(",")
-    assert len(names) >= 51  # every module of the slices so far was imported
+    assert len(names) >= 62  # every module of the slices so far was imported
     for name in ("benchmark", "io.mp3enc", "datasets.yodas2", "engine.encoder",
                  "mimi.streaming", "mimi.decoder", "codec", "core.codes", "__main__",
                  "datasets.base", "datasets.parquet_utils", "datasets.parquet_corpus",
                  "datasets.librispeech", "datasets.mls", "datasets.emilia", "qualify",
                  "runner.pod_runner", "runner.chip_check", "runner.manifests",
-                 "runner.monitor"):
+                 "runner.monitor", "datasets.pretrain_converter", "datasets.derivatives",
+                 "datasets.cvss", "bpe", "bpe.sampler", "bpe.trainer", "bpe.surgery",
+                 "analytics", "analytics.count_rows", "analytics.estimate_tokens",
+                 "analytics.validate"):
         assert f"tokenize_audio_tpu_torch.{name}" in names
     assert bad == "[]", f"the port imported {bad}"
+    # tokenizers and transformers load where they are used (bpe, analytics,
+    # qualify), never when a module is imported
+    assert heavy == "[]", f"importing the port loaded {heavy}"
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -17,6 +17,8 @@ import threading
 import time
 from types import SimpleNamespace
 
+import pytest
+
 from tokenize_audio_tpu import hub as jax_hub
 from tokenize_audio_tpu.runner import chip_check as jax_chip_check
 from tokenize_audio_tpu.runner import manifests as jax_manifests
@@ -667,6 +669,43 @@ def test_gpu_nodes_skip_the_ones_the_runtime_refuses(monkeypatch):
         m.setattr(pod_runner.os, "close", lambda fd: None)
         nodes = pod_runner._gpu_nodes()
     assert nodes == ["/dev/nvidia2"] and opened == ["/dev/nvidia2"]
+
+
+@pytest.mark.parametrize("visible, want", [
+    ("2,3", ["2", "3"]),
+    ("GPU-1a2b,GPU-3c4d", ["GPU-1a2b", "GPU-3c4d"]),
+    (None, ["0", "1"]),
+], ids=["index_list", "uuid_list", "unset"])
+def test_jobs_stay_inside_a_narrowed_allocation(tmp_path, monkeypatch, visible, want):
+    """With the runner's own CUDA_VISIBLE_DEVICES set, job ``chip`` gets the
+    chip-th GPU of that allocation (an index or a UUID), never physical GPU
+    ``chip`` (``2,3`` gives jobs 2 and 3, not 0 and 1); unset, the raw
+    index as before. Held for the pod runner's jobs and for chip_check's
+    child (an index past the allocation gives no GPU)."""
+    monkeypatch.setattr(pod_runner, "_gpu_nodes", lambda: [f"/dev/nvidia{i}" for i in range(4)])
+    monkeypatch.delenv("TOKENIZE_AUDIO_TPU_DEVICES", raising=False)
+    if visible is None:
+        monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    else:
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    marker_dir = tmp_path / "markers"
+    marker_dir.mkdir()
+    (tmp_path / "shards.txt").write_text("s1\ns2\n")
+    code = ("import os, time; "
+            f"open(r'{marker_dir}'+'/{{shard}}.chip','w').write(os.environ['CUDA_VISIBLE_DEVICES']); "
+            "time.sleep(0.5)")
+    rc = pod_runner.main([
+        "run", "--shard-list", str(tmp_path / "shards.txt"), "--max-concurrent", "2",
+        "--poll-seconds", "0.05", "--run-dir", str(tmp_path / "run"),
+        "--log-dir", str(tmp_path / "logs"), "--wait", "--", sys.executable, "-c", code,
+    ])
+    assert rc == 0
+    assert sorted((marker_dir / f"{s}.chip").read_text() for s in ("s1", "s2")) == want
+    assert pod_runner._visible_gpu_devices() == (2 if visible else 4)
+    report = chip_check.check_chip(chip=1, force_platform="cpu", timeout=120)
+    assert report["ok"] and report["injected_env"] == {"CUDA_VISIBLE_DEVICES": want[1]}
+    past = pod_runner._chip_env(pod_runner.DEFAULT_CHIP_ENV, 2)
+    assert past == {"CUDA_VISIBLE_DEVICES": "" if visible else "2"}
 
 
 FLEET_CHILD = os.path.join(os.path.dirname(__file__), "torch_fleet_child.py")

@@ -1,7 +1,8 @@
 """Launch-time validation of per-GPU job isolation (VERDICT r3 #4).
 
 The pod runner gives every shard job an exclusive GPU via env
-(``CUDA_VISIBLE_DEVICES={chip}``, pod_runner.DEFAULT_CHIP_ENV) — what the
+(``CUDA_VISIBLE_DEVICES={chip}``, pod_runner.DEFAULT_CHIP_ENV, ``{chip}`` taken
+inside the parent's own ``CUDA_VISIBLE_DEVICES`` where that is set) — what the
 reference's ``#SBATCH --gres=gpu:1`` sets for each job
 (yodas2-mimi/submit/job_template.sh:3). Whether a host's container runtime
 and GPU stack honor that var is deployment-dependent, so this check spawns a

@@ -12,8 +12,9 @@ hub, exactly like the reference's Slurm jobs). Provides:
     whose progress ledger says completed or that are already running
     (skip-if-queued, :82-97), per-shard log files, pidfile registry;
   - per-GPU job isolation on multi-GPU hosts: every launched job gets an
-    exclusive GPU index injected via env (``CUDA_VISIBLE_DEVICES``,
-    ``--chip-env`` to customize), the throttle is capped at the free-GPU
+    exclusive GPU injected via env (``CUDA_VISIBLE_DEVICES``, ``--chip-env``
+    to customize; the chip-th entry of the runner's own
+    ``CUDA_VISIBLE_DEVICES`` where that is set), the throttle is capped at the free-GPU
     count, and GPUs release when jobs exit — what the reference's
     one-GPU-per-job Slurm isolation sets for each job
     (yodas2-mimi/submit/job_template.sh:3-15, ``--gres=gpu:1``);
@@ -37,7 +38,7 @@ import signal
 import subprocess
 import sys
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 from tokenize_audio_tpu_torch.runner.progress import read_json
 
@@ -101,6 +102,25 @@ def _gpu_nodes():
     return nodes
 
 
+def _allocation(n_nodes: int) -> Optional[List[str]]:
+    """The entries of this process's ``CUDA_VISIBLE_DEVICES`` that CUDA
+    honours (an index below ``n_nodes``, a ``GPU-`` UUID or a ``MIG-`` id;
+    CUDA ignores the list from its first invalid entry on), or None when the
+    variable is unset. With no node found (``n_nodes`` 0), indices are not
+    bounded."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is None:
+        return None
+    entries = []
+    for v in visible.split(","):
+        v = v.strip()
+        if not ((v.isdigit() and (not n_nodes or int(v) < n_nodes))
+                or v.startswith(("GPU-", "MIG-"))):
+            break
+        entries.append(v)
+    return entries
+
+
 def _visible_gpu_devices():
     """GPU count without creating a CUDA context in the runner process
     (which would hold memory on GPU 0 for the whole run): trust an explicit
@@ -113,15 +133,9 @@ def _visible_gpu_devices():
         except ValueError:
             return None
     n = len(_gpu_nodes())
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-    if n and visible is not None:
-        count = 0
-        for v in visible.split(","):
-            v = v.strip()
-            if not ((v.isdigit() and int(v) < n) or v.startswith(("GPU-", "MIG-"))):
-                break  # CUDA ignores the list from its first invalid entry on
-            count += 1
-        n = count
+    allocation = _allocation(n)
+    if n and allocation is not None:
+        n = len(allocation)
     return n or None
 
 
@@ -133,10 +147,19 @@ DEFAULT_CHIP_ENV = ("CUDA_VISIBLE_DEVICES={chip}",)
 
 
 def _chip_env(templates, chip: int) -> Dict[str, str]:
+    """The env of job ``chip``. Where this process's ``CUDA_VISIBLE_DEVICES``
+    is set, ``{chip}`` in a ``CUDA_VISIBLE_DEVICES`` template is the chip-th
+    GPU of that allocation, as a Slurm job's ``--gres=gpu:1`` stays inside
+    the allocation (an index past it gives an empty value: no GPU), not
+    physical GPU ``chip``; unset, it is ``chip``."""
     env = {}
     for t in templates:
         var, _, val = t.partition("=")
-        env[var] = val.format(chip=chip)
+        value = chip
+        if var == "CUDA_VISIBLE_DEVICES" and var in os.environ:
+            allocation = _allocation(len(_gpu_nodes()))
+            value = allocation[chip] if chip < len(allocation) else ""
+        env[var] = val.format(chip=value)
     return env
 
 

@@ -157,21 +157,37 @@ the run (non-zero exit, no final result line) if its check fails:
                 against the CPU (kept rows bit-equal, new rows within 1e-6 x
                 max|w|), count_rows and estimate_tokens over every row; the
                 installed transformers and tokenizers, and what they load;
+  9e. mesh    — the in-process mesh (``parallel.mesh``, ``parallel.multihost``)
+                at full width, 32 codebooks, on the main sub-shard against
+                the solo engine's codes (>= 0.999 of frames, every flip a
+                near-tie under the kit's TIE_MARGIN): world 1 in process on
+                NCCL (the 1 x 1 mesh engine; a tp 1 ``shard_params_tp``
+                encode with 2 all-reduces per layer), then world 2 on the
+                one card as two ``--mesh-child`` processes on gloo (NCCL
+                refuses two ranks on one device): the dp 2 engine, a tp 2
+                encode of an 8 x 10 s batch against the replicated one,
+                packed words against padded codes, the fused 16 kHz
+                resample, an uneven 5-utterance tail and the stream policy
+                on the 75 s utterance; both kernels' launches on every rank
+                (each count set to 0 just before a run and read after it),
+                rank 0's dp-engine shapes (the ``mesh_path``), each
+                layout's RTF beside the solo engine's; a rank that fails or
+                runs past its limit fails the run with its log;
  10. replay   — the resblock kernel at each shape recorded on the main path,
-                the YODAS2 path, the bench, the corpora, the kit and the
-                downstream encode: agreement with its plain version,
-                CUDA-event times and the FP32 bound, summed per C as count x
-                ms (the ``main_path``, ``yodas2_path``, ``bench_path``,
-                ``corpus_path``, ``qualify_path`` and ``downstream_path``
-                entries of its record);
+                the YODAS2 path, the bench, the corpora, the kit, the
+                downstream encode and the mesh: agreement with its plain
+                version, CUDA-event times and the FP32 bound, summed per C as
+                count x ms (the ``main_path``, ``yodas2_path``,
+                ``bench_path``, ``corpus_path``, ``qualify_path``,
+                ``downstream_path`` and ``mesh_path`` entries of its record);
  11. rvq_replay — the RVQ kernel at each recorded (N, K) of the main,
-                stream, YODAS2, bench, corpus, qualify and downstream paths,
-                on the model's codebooks: code agreement with its plain
-                version (first divergences must be near-ties), CUDA-event
-                times and the FP32 bound, summed as count x ms (the
-                ``main_path``, ``stream_path``, ``yodas2_path``,
-                ``bench_path``, ``corpus_path``, ``qualify_path`` and
-                ``downstream_path`` entries of its record);
+                stream, YODAS2, bench, corpus, qualify, downstream and mesh
+                paths, on the model's codebooks: code agreement with its
+                plain version (first divergences must be near-ties),
+                CUDA-event times and the FP32 bound, summed as count x ms
+                (the ``main_path``, ``stream_path``, ``yodas2_path``,
+                ``bench_path``, ``corpus_path``, ``qualify_path``,
+                ``downstream_path`` and ``mesh_path`` entries of its record);
  12. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
@@ -191,6 +207,8 @@ csrc/rvq.cu (``rvq_quantize_launch``): ``--rvq-baseline-cu`` takes the
 kernel, and is also timed at the large shape; ``--rvq-candidate-cu``
 (repeatable, named by its file's stem) takes the codebooks of
 ``pack_codebooks`` too, and its code agreement is reported, not checked.
+``--mesh-child RANK --mesh-dir DIR`` runs one rank of the mesh phase's
+world 2; the phase starts both itself.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -3152,6 +3170,363 @@ def phase_downstream(torch, tmp):
     return launches, shapes, rvq_shapes
 
 
+MESH_RANK_SECONDS = 300  # each world-2 rank's wall limit
+MESH_TP_BATCH = (8, 10.0)  # rows x seconds of the padded tensor-parallel batch
+MESH_16K_SECONDS = (2.0, 4.5, 7.0, 9.5, 12.0, 14.5, 17.0, 20.0)  # fused 16 kHz utterances
+# __graft_entry__.dryrun_multichip's uneven tail: 5 utterances, batch 2 x dp,
+# a 0.4 s cap that splits the last one
+MESH_TAIL_SAMPLES = (SPF + 7, 3 * SPF, 2 * SPF - 11, SPF // 2, 5 * SPF + 3)
+MESH_TAIL_CFG = dict(batch_size=4, min_bucket_seconds=0.05, max_chunk_seconds=0.4,
+                     code_transfer_format="packed")
+
+
+def mesh_inputs():
+    """The mesh phase's inputs, drawn alike by the parent and every rank:
+    the main phase's sub-shard, an 8 x 10 s padded int16 batch, 16 kHz
+    int16 utterances and the uneven tail."""
+    audios = make_subshard(np.random.default_rng(SEED + 1))
+    rng = np.random.default_rng(SEED + 50)
+    rows, secs = MESH_TP_BATCH
+    batch = np.stack([tone_pcm(rng, secs) for _ in range(rows)])
+    valid = rng.integers(batch.shape[1] // 3, batch.shape[1] + 1, rows).astype(np.int32)
+    valid[0] = batch.shape[1]
+    for i, v in enumerate(valid):
+        batch[i, v:] = 0
+    pcm16 = [tone_pcm(rng, s, 16_000) for s in MESH_16K_SECONDS]
+    tail = [tone_pcm(rng, 1.0)[:n] for n in MESH_TAIL_SAMPLES]
+    return {"subshard": audios, "tp_batch": batch, "tp_valid": valid, "pcm16": pcm16,
+            "tail": tail}
+
+
+def rvq_input_of(torch, params, cfg, audio, sr=SR, cap_seconds=60.0):
+    """The RVQ input (1, hidden, frames) of ``audio`` as the engine encodes
+    it: each piece of its split at ``cap_seconds`` in one plain-backend
+    encode on the card at the source rate (fused resample off 24 kHz),
+    concatenated on the time axis."""
+    from tokenize_audio_tpu_torch.core.audio import split_long_audio
+    from tokenize_audio_tpu_torch.mimi import model
+
+    plain = dataclasses.replace(cfg, rvq_backend="torch", seanet_backend="torch")
+    g = math.gcd(sr, SR)
+    up, down = SR // g, sr // g
+    spf_io = SPF * down // up
+    cap = max(spf_io, int(cap_seconds * sr) // spf_io * spf_io)
+    seen, orig, embs = {}, model.split_rvq_encode, []
+
+    def spy(p, emb, *args, **kwargs):
+        seen["emb"] = emb
+        return orig(p, emb, *args, **kwargs)
+
+    model.split_rvq_encode = spy
+    try:
+        for piece in split_long_audio(audio, cap):
+            padded = np.zeros(-(-len(piece) // spf_io) * spf_io, dtype=piece.dtype)
+            padded[: len(piece)] = piece
+            _, valid = model.encode(params, plain, torch.from_numpy(padded)[None].cuda(),
+                                    torch.tensor([len(piece)], dtype=torch.int32).cuda(),
+                                    num_quantizers=32, resample=None if sr == SR else (up, down))
+            embs.append(seen["emb"][:, :, : int(valid[0])])
+    finally:
+        model.split_rvq_encode = orig
+    return torch.cat(embs, dim=2)
+
+
+def match_within_ties(torch, params, cfg, audios, got, want, what, sr=SR, cap_seconds=60.0):
+    """Frame-for-frame match of two code lists, one per utterance of
+    ``audios``: >= 0.999 of frames equal, and every differing frame a
+    near-tie (``flip_margins`` under the kit's TIE_MARGIN, replayed on the
+    utterance's own RVQ input, ``rvq_input_of``)."""
+    from tokenize_audio_tpu_torch.qualify import TIE_MARGIN
+
+    check(len(got) == len(want) == len(audios), f"{what}: {len(got)} code arrays vs {len(want)}")
+    same = frames = 0
+    margins = []
+    for audio, g, w in zip(audios, got, want):
+        check(g.shape == w.shape, f"{what}: codes {g.shape} vs {w.shape}")
+        eq = (g == w).all(axis=0)
+        same, frames = same + int(eq.sum()), frames + eq.size
+        if not eq.all():
+            m = flip_margins(torch, params["rvq"],
+                             rvq_input_of(torch, params, cfg, audio, sr, cap_seconds), g, w)
+            check(m is not None, f"{what}: too many differing frames")
+            margins += m
+    check(same >= 0.999 * frames, f"{what}: {same} of {frames} frames equal")
+    check(max(margins, default=0.0) < TIE_MARGIN, f"{what}: a flip is no near-tie: {margins}")
+    return {"frames": frames, "equal_frames": same, "flip_margins": margins}
+
+
+def counted_run(torch, run):
+    """``run()`` with both kernel wrappers' launch counts set to 0 just
+    before it and read just after (the card synchronised): (result,
+    seconds, {kernel: launches})."""
+    from tokenize_audio_tpu_torch.ops.cuda import rvq, seanet
+
+    rvq.rvq_quantize.launches = seanet.resblock_elu.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {"rvq_quantize": rvq.rvq_quantize.launches,
+                                           "resblock_elu": seanet.resblock_elu.launches}
+
+
+@contextlib.contextmanager
+def all_reduce_spy():
+    """While open, records the shape of every ``torch.distributed.all_reduce``."""
+    import torch.distributed as dist
+
+    calls, orig = [], dist.all_reduce
+
+    def spy(t, *args, **kwargs):
+        calls.append(tuple(t.shape))
+        return orig(t, *args, **kwargs)
+
+    dist.all_reduce = spy
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = orig
+
+
+def mesh_child(torch, rank: int, tmp: str) -> int:
+    """One rank of the mesh phase's world 2: gloo (NCCL refuses two ranks on
+    one card), both ranks on cuda:0. Runs, each with both kernels' launch
+    counts set to 0 just before and read just after: the dp 2 engine on the
+    sub-shard (shapes spied), the tp 2 ``shard_params_tp`` encode of the
+    padded batch (all-reduces counted), packed against padded on this
+    rank's rows, the fused 16 kHz encode, the uneven tail and the stream
+    policy on the 75 s utterance. Writes ``rank{r}.npz`` / ``.json``."""
+    import torch.distributed as dist
+
+    from tokenize_audio_tpu_torch.config import EngineConfig
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+    from tokenize_audio_tpu_torch.mimi import MimiConfig, model, random_params
+    from tokenize_audio_tpu_torch.parallel import multihost
+    from tokenize_audio_tpu_torch.parallel.mesh import (
+        batch_sharding, make_mesh, replicate_params, shard_params_tp,
+    )
+
+    tmp = Path(tmp)
+    dev = multihost.init_distributed(f"file://{tmp}/store2", 2, rank, backend="gloo",
+                                     device="cuda:0")
+    cfg = MimiConfig()
+    params = random_params(cfg, seed=SEED)
+    x = mesh_inputs()
+    dp_mesh, tp_mesh = make_mesh(dp=2, tp=1), make_mesh(dp=1, tp=2)
+    info = {"rank": rank, "backend": dp_mesh.backend, "device": str(dev),
+            "dp_mesh": [dp_mesh.data_index, dp_mesh.model_index],
+            "tp_mesh": [tp_mesh.data_index, tp_mesh.model_index]}
+    saved = {}
+
+    def counted(name, run):
+        out, seconds, launches = counted_run(torch, run)
+        info[name] = {"seconds": seconds, "launches": launches}
+        return out
+
+    def keep(name, codes):
+        saved.update({f"{name}_{i}": c for i, c in enumerate(codes)})
+
+    engine = MimiEncoderEngine(params, cfg, num_codebooks=32, mesh=dp_mesh)
+    engine.encode_batch(x["subshard"])  # first-use set-up of every shape, not counted
+    with KernelSpy() as spy:
+        keep("dp", counted("dp_engine", lambda: engine.encode_batch(x["subshard"])))
+        info["shapes"] = [[list(k), n] for k, n in spy.shapes.items()]
+        info["rvq_shapes"] = [[list(k), n] for k, n in spy.rvq_shapes.items()]
+
+    b = torch.from_numpy(x["tp_batch"]).to(dev)
+    v = torch.from_numpy(x["tp_valid"]).to(dev)
+    p_tp = shard_params_tp(params, tp_mesh, cfg)
+    with all_reduce_spy() as reduces:
+        codes, _ = counted("tp_encode", lambda: model.encode(
+            p_tp, cfg, b, v, num_quantizers=32, group=tp_mesh.model_group))
+    saved["tp"] = codes.cpu().numpy()
+    info["tp_encode"]["all_reduces"] = len(reduces)
+
+    rows = batch_sharding(dp_mesh).span(len(x["tp_batch"]))
+    rep = replicate_params(params, dp_mesh)
+    padded, _ = model.encode(rep, cfg, b[rows], v[rows], num_quantizers=32)
+    packed, _ = model.encode(rep, cfg, b[rows], v[rows], num_quantizers=32, transfer="packed")
+    u16 = np.ascontiguousarray(packed.cpu().numpy()).view("<u2")
+    u16 = u16.reshape(packed.shape[0], packed.shape[1], -1).transpose(0, 2, 1)
+    info["packed_rows"] = [rows.start, rows.stop]
+    info["packed_unpacks_to_padded"] = bool(np.array_equal(u16, padded.cpu().numpy()))
+
+    keep("fused16", counted("fused16", lambda: engine.encode_batch(x["pcm16"], sr=16_000)))
+    tail = MimiEncoderEngine(params, cfg, EngineConfig(**MESH_TAIL_CFG), num_codebooks=32,
+                             mesh=dp_mesh)
+    keep("tail", counted("tail", lambda: tail.encode_batch(x["tail"])))
+    stream = MimiEncoderEngine(params, cfg, EngineConfig(long_audio_policy="stream"),
+                               num_codebooks=32, mesh=dp_mesh)
+    keep("stream", counted("stream", lambda: stream.encode_batch([x["subshard"][-1]])))
+    np.savez(tmp / f"rank{rank}.npz", **saved)
+    (tmp / f"rank{rank}.json").write_text(json.dumps(info))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(torch, tmp):
+    """The in-process mesh at full kyutai/mimi width (random weights, seed
+    0), 32 codebooks, on the main phase's sub-shard against the solo
+    engine's codes: world 1 in process on NCCL (the 1 x 1 mesh engine, a
+    tp 1 ``shard_params_tp`` encode with its all-reduces counted), then
+    world 2 on the one card (two ``--mesh-child`` processes, gloo): the dp
+    2 engine, a tp 2 encode against the replicated one, packed words against
+    padded codes, the fused 16 kHz resample, the uneven tail and the stream
+    policy, each against the solo engine under the near-tie rule. Returns
+    each rank's launches and world-2 rank 0's dp-engine shapes (the
+    ``mesh_path``)."""
+    import os
+
+    import torch.distributed as dist
+
+    from tokenize_audio_tpu_torch.config import EngineConfig
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+    from tokenize_audio_tpu_torch.mimi import MimiConfig, model, params_to_torch, random_params
+    from tokenize_audio_tpu_torch.parallel import multihost
+    from tokenize_audio_tpu_torch.parallel.mesh import make_mesh, shard_params_tp
+
+    t_phase = time.perf_counter()
+    cfg = MimiConfig()
+    raw = random_params(cfg, seed=SEED)
+    params = params_to_torch(raw)  # on the card, for the near-tie replays
+    x = mesh_inputs()
+    audios = x["subshard"]
+    audio_seconds = sum(len(a) for a in audios) / SR
+    # each engine's timed pass follows an unmeasured one, which sets up
+    # every batch shape's convolutions
+    solo = MimiEncoderEngine(raw, cfg, num_codebooks=32)
+    solo.encode_batch(audios)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo_codes = solo.encode_batch(audios)
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    frames = [-(-int(v) // SPF) for v in x["tp_valid"]]
+    tp_audio = [x["tp_batch"][i, : x["tp_valid"][i]] for i in range(len(frames))]
+
+    def rows_of(codes):
+        return [codes[i, :, :f] for i, f in enumerate(frames)]
+
+    # ---- world 1: the in-process mesh on NCCL --------------------------
+    dev = multihost.init_distributed(f"file://{tmp}/store1", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", f"world 1 backend {dist.get_backend()}")
+        mesh = make_mesh()
+        check(mesh.shape == {"data": 1, "model": 1} and mesh.device == dev, f"world 1 mesh {mesh}")
+        engine = MimiEncoderEngine(raw, cfg, num_codebooks=32, mesh=mesh)
+        engine.encode_batch(audios)
+        torch.cuda.synchronize()
+        with KernelSpy() as spy:
+            t0 = time.perf_counter()
+            codes1 = engine.encode_batch(audios)
+            torch.cuda.synchronize()
+            wall1 = time.perf_counter() - t0
+            w1_launches = spy.launches()
+        check(all(n > 0 for n in w1_launches.values()), f"world 1 engine launches {w1_launches}")
+        w1_match = match_within_ties(torch, params, cfg, audios, codes1, solo_codes,
+                                     "world 1 mesh engine vs solo")
+        b = torch.from_numpy(x["tp_batch"]).to(dev)
+        v = torch.from_numpy(x["tp_valid"]).to(dev)
+        p_tp = shard_params_tp(raw, mesh, cfg)
+        with all_reduce_spy() as reduces:
+            (tp1, _), _, tp1_launches = counted_run(torch, lambda: model.encode(
+                p_tp, cfg, b, v, num_quantizers=32, group=mesh.model_group))
+        check(len(reduces) == 2 * cfg.num_hidden_layers,
+              f"world 1 tp encode: {len(reduces)} all-reduces, not 2 per layer")
+        check(all(n > 0 for n in tp1_launches.values()), f"world 1 tp launches {tp1_launches}")
+        replicated, _ = model.encode(params, cfg, b, v, num_quantizers=32)
+        replicated = replicated.cpu().numpy()
+        tp1_match = match_within_ties(torch, params, cfg, tp_audio, rows_of(tp1.cpu().numpy()),
+                                      rows_of(replicated), "world 1 tp encode vs replicated")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- world 2: two ranks on the one card, gloo ----------------------
+    t_world2 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-child",
+                               str(r), "--mesh-dir", str(tmp)], cwd=ROOT, env=dict(os.environ),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        # the references, on the card while the ranks run
+        ref16 = solo.encode_batch(x["pcm16"], sr=16_000)
+        ref_tail = MimiEncoderEngine(raw, cfg, EngineConfig(**MESH_TAIL_CFG),
+                                     num_codebooks=32).encode_batch(x["tail"])
+        ref_stream = MimiEncoderEngine(raw, cfg, EngineConfig(long_audio_policy="stream"),
+                                       num_codebooks=32).encode_batch([audios[-1]])
+        for r, p in enumerate(procs):
+            left = MESH_RANK_SECONDS - (time.perf_counter() - t_world2)
+            try:
+                logs.append(p.communicate(timeout=max(1.0, left))[0])
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"mesh rank {r} ran past {MESH_RANK_SECONDS} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                logs.append(p.communicate()[0])
+    for r, p in enumerate(procs):
+        check(p.returncode == 0,
+              f"mesh rank {r} exited {p.returncode}:\n" + "\n".join(f"--- {t[-4000:]}" for t in logs))
+    world2_seconds = time.perf_counter() - t_world2
+    ranks, launches = [], {"world1": {"engine": w1_launches, "tp_encode": tp1_launches}}
+    for r in range(2):
+        info = json.loads((Path(tmp) / f"rank{r}.json").read_text())
+        z = np.load(Path(tmp) / f"rank{r}.npz")
+
+        def got(name, n):
+            return [z[f"{name}_{i}"] for i in range(n)]
+
+        what = f"world 2 rank {r}"
+        check(info["backend"] == "gloo" and info["device"] == "cuda:0", f"{what}: {info}")
+        for run in ("dp_engine", "tp_encode", "fused16", "tail"):
+            check(all(n > 0 for n in info[run]["launches"].values()),
+                  f"{what} {run} launches {info[run]['launches']}")
+        check(info["stream"]["launches"]["rvq_quantize"] > 0, f"{what}: no RVQ launch streaming")
+        check(info["tp_encode"]["all_reduces"] == 2 * cfg.num_hidden_layers,
+              f"{what}: {info['tp_encode']['all_reduces']} all-reduces")
+        check(info["packed_unpacks_to_padded"], f"{what}: packed words differ from padded codes")
+        for n, c in zip(MESH_TAIL_SAMPLES, got("tail", len(x["tail"]))):
+            check(c.shape == (32, -(-n // SPF)), f"{what}: tail codes {c.shape} for {n} samples")
+        ranks.append({
+            "rank": r, "mesh": {"dp": info["dp_mesh"], "tp": info["tp_mesh"]},
+            "runs": {k: info[k] for k in ("dp_engine", "tp_encode", "fused16", "tail", "stream")},
+            "dp_engine_rtf": audio_seconds / info["dp_engine"]["seconds"],
+            "dp_engine": match_within_ties(torch, params, cfg, audios, got("dp", len(audios)),
+                                           solo_codes, f"{what} dp 2 engine"),
+            "tp_encode": match_within_ties(torch, params, cfg, tp_audio, rows_of(z["tp"]),
+                                           rows_of(replicated), f"{what} tp 2 encode"),
+            "fused16": match_within_ties(torch, params, cfg, x["pcm16"],
+                                         got("fused16", len(x["pcm16"])), ref16,
+                                         f"{what} fused 16 kHz", sr=16_000),
+            "tail": match_within_ties(torch, params, cfg, x["tail"], got("tail", len(x["tail"])),
+                                      ref_tail, f"{what} tail", cap_seconds=0.4),
+            "stream": match_within_ties(torch, params, cfg, [audios[-1]], got("stream", 1),
+                                        ref_stream, f"{what} stream", cap_seconds=1e9),
+        })
+        launches[f"rank{r}"] = {k: info[k]["launches"] for k in
+                                ("dp_engine", "tp_encode", "fused16", "tail", "stream")}
+        if r == 0:
+            shapes = collections.Counter({tuple(k): n for k, n in info["shapes"]})
+            rvq_shapes = collections.Counter({tuple(k): n for k, n in info["rvq_shapes"]})
+    emit({
+        "phase": "mesh",
+        "audio_seconds": audio_seconds,
+        "solo_rtf": audio_seconds / solo_wall,
+        "world1": {"backend": "nccl", "rtf": audio_seconds / wall1, "engine": w1_match,
+                   "tp_encode": {**tp1_match, "all_reduces": len(reduces)}},
+        "world2": {"backend": "gloo", "ranks": ranks, "seconds": world2_seconds},
+        "launches": launches,
+        "phase_seconds": time.perf_counter() - t_phase,
+    })
+    per_kernel = {name: {"world1": {run: n[name] for run, n in launches["world1"].items()},
+                         **{f"rank{r}": {run: n[name] for run, n in launches[f"rank{r}"].items()}
+                            for r in range(2)}}
+                  for name in ("rvq_quantize", "resblock_elu")}
+    return per_kernel, shapes, rvq_shapes
+
+
 def start_extra_build(name: str, src: str, entry: str, argtypes):
     """Start ``nvcc`` on another version of a kernel's source into
     ``lib<name>.so``; returns a function that waits for it and returns its
@@ -3354,12 +3729,17 @@ def main(argv=None) -> int:
                     help="an older rvq.cu ((K, V, D) codebooks and e2) to time beside the kernel")
     ap.add_argument("--rvq-candidate-cu", action="append", default=[],
                     help="another rvq.cu (packed codebooks) to time beside the kernel")
+    ap.add_argument("--mesh-child", type=int, metavar="RANK",
+                    help="run one rank of the mesh phase's two-process world (the phase starts it)")
+    ap.add_argument("--mesh-dir", help="the mesh phase's directory (with --mesh-child)")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.mesh_child is not None:
+        return mesh_child(torch, args.mesh_child, args.mesh_dir)
     from tokenize_audio_tpu_torch.ops.cuda import _build, rvq, seanet
 
     name = torch.cuda.get_device_name(0)
@@ -3429,6 +3809,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_downstream_") as tmp:
             downstream_launches, downstream_shapes, downstream_rvq_shapes = timed(
                 "downstream", phase_downstream, torch, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            mesh_launches, mesh_shapes, mesh_rvq_shapes = timed("mesh", phase_mesh, torch, tmp)
         for r in records:
             r["launches"] = launches[r["name"]]
             r["stream_launches"] = stream_launches[r["name"]]
@@ -3439,6 +3821,7 @@ def main(argv=None) -> int:
             r["modes_launches"] = {m: n[r["name"]] for m, n in modes_launches.items()}
             r["qualify_launches"] = {e: n[r["name"]] for e, n in qualify_launches.items()}
             r["downstream_launches"] = downstream_launches[r["name"]]
+            r["mesh_launches"] = mesh_launches[r["name"]]
         t = time.perf_counter()
         rb = next(r for r in records if r["name"] == "resblock_elu")
         rb["main_path"] = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
@@ -3452,6 +3835,8 @@ def main(argv=None) -> int:
                                           path="qualify_path")
         rb["downstream_path"] = phase_replay(torch, downstream_shapes, peak_flops, peak_bw, {},
                                              path="downstream_path")
+        rb["mesh_path"] = phase_replay(torch, mesh_shapes, peak_flops, peak_bw, {},
+                                       path="mesh_path")
         times["replay"] = time.perf_counter() - t
         t = time.perf_counter()
         rq = next(r for r in records if r["name"] == "rvq_quantize")
@@ -3461,7 +3846,8 @@ def main(argv=None) -> int:
                                  ("bench_path", bench_rvq_shapes, {}),
                                  ("corpus_path", corpus_rvq_shapes, {}),
                                  ("qualify_path", qualify_rvq_shapes, {}),
-                                 ("downstream_path", downstream_rvq_shapes, {})):
+                                 ("downstream_path", downstream_rvq_shapes, {}),
+                                 ("mesh_path", mesh_rvq_shapes, {})):
             rq[path] = phase_rvq_replay(torch, found, peak_flops, peak_bw, ext, path=path)["total"]
         times["rvq_replay"] = time.perf_counter() - t
         timed("tie", phase_tie, torch)

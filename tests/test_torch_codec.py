@@ -25,6 +25,7 @@ from tokenize_audio_tpu_torch.io import read_wav, write_wav
 from tokenize_audio_tpu_torch.mimi import decode, params_to_torch
 from tokenize_audio_tpu_torch.mimi.decoder import conv_transpose1d, split_rvq_decode
 from tokenize_audio_tpu_torch.mimi.weights import config_from_hf
+from tokenize_audio_tpu_torch.parallel.mesh import make_mesh
 
 SPF = 1920
 ENGINE_KW = dict(batch_size=2, min_bucket_seconds=0.25, max_chunk_seconds=2.0)
@@ -126,13 +127,20 @@ def test_encode_resamples(codec):
 
 def test_codec_device_and_mesh(oracle):
     """The codec runs where its engine runs: the card unless asked
-    otherwise (and without a card that raises); a mesh is refused."""
+    otherwise (and without a card that raises), or its mesh's device; a
+    1 x 1 mesh gives the solo codes, and an object that is not a mesh
+    raises TypeError."""
     _, params, _, cfg = oracle
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MimiCodec(params, cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         MimiCodec(params, cfg, mesh=object(), device="cpu")
+    meshed = MimiCodec(params, cfg, mesh=make_mesh(device="cpu"))
+    assert meshed.device == torch.device("cpu")
+    audio = (np.random.default_rng(5).standard_normal(7000) * 0.3).astype(np.float32)
+    np.testing.assert_array_equal(meshed.encode(audio),
+                                  MimiCodec(params, cfg, device="cpu").encode(audio))
 
 
 def test_from_hf_dir(tmp_path):

@@ -11,6 +11,7 @@ from tokenize_audio_tpu.engine import MimiEncoderEngine as JaxEngine
 from tokenize_audio_tpu_torch.config import EngineConfig
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
 from tokenize_audio_tpu_torch.mimi.weights import config_from_hf
+from tokenize_audio_tpu_torch.parallel.mesh import make_mesh
 
 SPF = 1920
 
@@ -106,14 +107,14 @@ def test_engine_needs_a_device(oracle):
     ],
 )
 def test_engine_unported_options_raise(oracle, kw):
-    """A mesh is still refused (the port's engine runs on one device); the
-    "ready" and "threaded" drains, refused before they were ported, run and
-    give FIFO's codes."""
+    """Options refused before they were ported now run: the "ready" and
+    "threaded" drains give FIFO's codes, and so does a 1 x 1 mesh, where an
+    object that is not a mesh raises TypeError."""
     _, params, _, cfg = oracle
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             MimiEncoderEngine(params, cfg, device="cpu", **kw)
-        return
+        kw = {"mesh": make_mesh(device="cpu")}
     audios = utterances(np.random.default_rng(4))[:4]
     want = MimiEncoderEngine(params, cfg, device="cpu").encode_batch(audios)
     assert_same(MimiEncoderEngine(params, cfg, device="cpu", pipeline_depth=2, **kw)

@@ -1,6 +1,7 @@
 """PyTorch port, isolation: no module of the port (nor chip_smoke.py) pulls in
-JAX or the JAX package, or loads tokenizers or transformers on import, and
-the kernel build fails loudly without nvcc."""
+JAX or the JAX package, loads tokenizers or transformers, or initializes
+torch.distributed on import, and the kernel build fails loudly without
+nvcc."""
 
 import os
 import subprocess
@@ -18,6 +19,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import torch.distributed
+assert not torch.distributed.is_initialized(), "importing the port initialized torch.distributed"
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
@@ -39,7 +42,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     names, bad, heavy = out.stdout.strip().splitlines()[-3:]
     names = names.split(",")
-    assert len(names) >= 62  # every module of the slices so far was imported
+    assert len(names) >= 65  # every module of the slices so far was imported
     for name in ("benchmark", "io.mp3enc", "datasets.yodas2", "engine.encoder",
                  "mimi.streaming", "mimi.decoder", "codec", "core.codes", "__main__",
                  "datasets.base", "datasets.parquet_utils", "datasets.parquet_corpus",
@@ -48,7 +51,7 @@ def test_port_imports_no_jax():
                  "runner.monitor", "datasets.pretrain_converter", "datasets.derivatives",
                  "datasets.cvss", "bpe", "bpe.sampler", "bpe.trainer", "bpe.surgery",
                  "analytics", "analytics.count_rows", "analytics.estimate_tokens",
-                 "analytics.validate"):
+                 "analytics.validate", "parallel", "parallel.mesh", "parallel.multihost"):
         assert f"tokenize_audio_tpu_torch.{name}" in names
     assert bad == "[]", f"the port imported {bad}"
     # tokenizers and transformers load where they are used (bpe, analytics,

@@ -14,6 +14,8 @@ mimi      : the PyTorch Mimi encoder (one-shot and streaming) and decoder,
             weight conversion from HF checkpoints
 ops       : hand-written CUDA kernels and their plain PyTorch versions
 engine    : length-bucketed batch encoding engine with throughput metrics
+parallel  : the (data, model) mesh of torch.distributed ranks, tensor-parallel
+            param slices, multi-process helpers
 io        : WAV / native FLAC / libmpg123 decode, fast code JSON, prefetch
 hub       : artifact stores (local directory, HuggingFace Hub)
 runner    : crash-safe progress ledger and the shard work loop

@@ -42,9 +42,10 @@ class MimiCodec:
         self.cfg = cfg or MimiConfig()
         self.num_codebooks = num_codebooks
         self.unicode_offset = unicode_offset
-        # the engine puts a pruned encode-only subtree on the device (and
-        # refuses a mesh); the full params stay on the host for the decode
-        # path, whose subtree goes to the device on the first decode
+        # the engine puts a pruned encode-only subtree on the device (the
+        # mesh's rank device under a mesh); the full params stay on the host
+        # for the decode path, whose subtree goes to that device on the
+        # first decode
         self._full_params = params
         self._decode_params = None
         self.engine = MimiEncoderEngine(

@@ -28,8 +28,12 @@ drain policy of ``EngineConfig`` ("fifo", "ready", "threaded"), the
 provisioning probes (``autotune_transfer``, ``autotune_pipeline_depth``,
 ``autotune_drain_policy``, and ``request_autotune`` on the first real
 batch), and one retry of a transient device fault (``_retry_transient``).
-Not ported yet: a device mesh / multi-GPU (the constructor raises
-NotImplementedError for one).
+
+With a ``parallel.mesh.Mesh`` (one process per GPU under
+``torch.distributed``), the batch dimension is split over the mesh's
+``data`` axis and params are replicated: every rank passes the same
+utterance list, plans the same batches, encodes its data block's rows and
+all-gathers the codes, so every rank returns the full result.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tokenize_audio_tpu_torch.config import EngineConfig, resolve_device
 from tokenize_audio_tpu_torch.core.audio import (
@@ -62,6 +67,7 @@ from tokenize_audio_tpu_torch.mimi.streaming import StreamingMimiEncoder
 from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
 from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
 from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
+from tokenize_audio_tpu_torch.parallel.mesh import Mesh, batch_sharding
 
 logger = logging.getLogger(__name__)
 
@@ -114,6 +120,18 @@ def _pack_for_kernel(params, cfg: MimiConfig):
     return params
 
 
+def _mesh_device(mesh: Mesh, device) -> torch.device:
+    """A mesh engine runs on its rank's device; ``device``, if given, must
+    name the same one."""
+    if mesh.data_index is None:
+        raise ValueError("this rank is not in the mesh's grid (ranks past dp * tp)")
+    if device is not None:
+        want = torch.device(device)
+        if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
+            raise ValueError(f"device {want} is not the mesh's device {mesh.device}")
+    return mesh.device
+
+
 class MimiEncoderEngine:
     def __init__(
         self,
@@ -129,9 +147,12 @@ class MimiEncoderEngine:
         pipeline_depth: int = 18,
         device: Optional[str | torch.device] = None,
     ):
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError("the port's engine runs on one device (no mesh)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                f"mesh must be a tokenize_audio_tpu_torch.parallel.mesh.Mesh, got "
+                f"{type(mesh).__name__}"
+            )
+        self.device = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
         self.pipeline_depth = pipeline_depth
         self.last_autotune: dict = {}  # per-format median probe seconds
         self.last_autotune_depth: dict = {}  # per-depth median probe seconds
@@ -178,9 +199,38 @@ class MimiEncoderEngine:
             )
         if self.engine_cfg.code_transfer_format == "compact" and not self.masked:
             raise ValueError("compact transfer requires masked=True")
-        # pruned params live on the device for the engine's lifetime: the
-        # decoder stack and unused acoustic codebooks are ~half the
-        # checkpoint and the encode path never reads them
+        if self.engine_cfg.code_transfer_format == "compact" and mesh is not None:
+            raise ValueError(
+                "compact transfer is single-device (the compaction cumsum "
+                "would gather across the batch sharding); use 'packed' or "
+                "'padded' with a mesh"
+            )
+        self.mesh = mesh
+        self._batch_sharding = None
+        self._multiprocess = False
+        self._batch_multiple = 1
+        if mesh is not None:
+            dp = mesh.dp
+            # every batch must split evenly over the data axis (the row-block
+            # upload and the per-row trim both assume uniform row blocks)
+            self._batch_multiple = dp
+            if self.engine_cfg.batch_size % dp != 0:
+                raise ValueError(
+                    f"batch_size {self.engine_cfg.batch_size} must divide evenly "
+                    f"over the data mesh axis ({dp} devices)"
+                )
+            self._batch_sharding = batch_sharding(mesh)
+            # a grid of more than one process: every rank calls encode_batch
+            # with the SAME utterance list (the same plan keeps the
+            # collectives in step), uploads only its data block's rows, and
+            # the codes all-gather back so every rank returns the full code
+            # list. Codes are ~200 B per second of audio, so the gather is
+            # negligible next to the audio upload it avoids replicating.
+            self._multiprocess = mesh.dp * mesh.tp > 1
+        # pruned params live on the device for the engine's lifetime (each
+        # rank of a mesh holds a replica): the decoder stack and unused
+        # acoustic codebooks are ~half the checkpoint and the encode path
+        # never reads them
         params = _pack_for_kernel(
             params_to_torch(_prune_for_encode(params, self.num_codebooks), self.device),
             self.cfg,
@@ -226,7 +276,9 @@ class MimiEncoderEngine:
         # tail-ladder batch size >= n_real (bounded set of batch shapes,
         # minimal padded-row waste — see EngineConfig.batch_size_for_group)
         bs = self.engine_cfg.batch_size_for_group(
-            budget_len if budget_len is not None else bucket, n_real
+            budget_len if budget_len is not None else bucket,
+            n_real,
+            multiple_of=self._batch_multiple,
         )
         # pad rows match the group's dtype so an all-int16 group keeps the
         # narrow-transfer fast path (pad_to_bucket falls back to f32 on mix)
@@ -246,8 +298,9 @@ class MimiEncoderEngine:
             res_len = -((-res_len * up) // down)
         frames = (-(-res_len // spf)).astype(np.int64)
         with self.stats.stage("dispatch"):
-            b = torch.from_numpy(batch).to(self.device)
-            v = torch.from_numpy(lengths).to(self.device)
+            rows = slice(None) if self._batch_sharding is None else self._batch_sharding.span(bs)
+            b = torch.from_numpy(batch[rows]).to(self.device)
+            v = torch.from_numpy(lengths[rows]).to(self.device)
             codes, _ = mimi_encode(
                 self.params,
                 self.cfg,
@@ -270,6 +323,8 @@ class MimiEncoderEngine:
                 cap = codes.shape[0]
                 step = max(1, cap // 16)
                 codes = codes[: min(cap, -(-total // step) * step)]
+            if self._multiprocess:
+                codes = self._gather_rows(codes)
             # queue the device->host copy now, behind the encode on the same
             # stream: it starts the moment compute finishes, and _collect
             # waits on the event instead of synchronizing the device
@@ -282,6 +337,18 @@ class MimiEncoderEngine:
             else:
                 host = codes
         return host, event, n_real, frames, bucket_frames
+
+    def _gather_rows(self, codes: torch.Tensor) -> torch.Tensor:
+        """The whole batch's codes from every data block's rows: an
+        all-gather over the mesh's data group, on the stream behind the
+        encode, so the device-to-host copy queued after it reads the
+        gathered codes. The codes go as raw bytes (uint8), which both NCCL
+        and gloo carry whatever the code dtype. Under gloo a CUDA tensor is
+        staged through host memory by gloo itself."""
+        raw = codes.contiguous().view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(self.mesh.dp)]
+        dist.all_gather(parts, raw, group=self.mesh.data_group)
+        return torch.cat(parts).view(codes.dtype)
 
     def _device_recovers(self, exc: BaseException) -> bool:
         """Whether the device can take a retry after ``exc``: always after
@@ -309,11 +376,12 @@ class MimiEncoderEngine:
         defaulting to ``attempt()`` again) is exact and turns a would-be
         shard-attempt abort into a counted ``transient_retries`` stat. A
         persistent fault re-raises into the shard-level restart-resume
-        machinery."""
+        machinery. A multiprocess mesh never retries: a lone re-dispatch
+        would put this rank's collectives out of step with its peers'."""
         try:
             return attempt()
         except _TRANSIENT as e:
-            if not self._device_recovers(e):
+            if self._multiprocess or not self._device_recovers(e):
                 raise
             logger.warning("transient device fault %s; retrying once: %s", what, e)
             with self.stats._lock:  # the threaded drain retries concurrently
@@ -505,7 +573,9 @@ class MimiEncoderEngine:
             # the samples budget bounds POST-resample activation memory, so
             # size batches by the resampled length, not the source length
             budget_len = bucket if resample_arg is None else bucket * up // down
-            bs = self.engine_cfg.batch_size_for_bucket(budget_len)
+            bs = self.engine_cfg.batch_size_for_bucket(
+                budget_len, multiple_of=self._batch_multiple
+            )
             for s in range(0, len(group_idx), bs):
                 jobs.append((bucket, budget_len, group_idx[s : s + bs]))
 
@@ -516,7 +586,9 @@ class MimiEncoderEngine:
         results: List[Optional[np.ndarray]] = [None] * len(pieces)
         # (handle, idxs, bucket, budget_len), or (future, idxs) when threaded
         inflight: List[tuple] = []
-        policy = self.engine_cfg.drain_policy
+        # a multiprocess mesh keeps FIFO: collection must not interleave
+        # with the collective schedule every rank follows
+        policy = "fifo" if self._multiprocess else self.engine_cfg.drain_policy
         if policy == "threaded" and self._fetch_pool is None:
             self._fetch_pool = ThreadPoolExecutor(
                 max_workers=max(1, self.engine_cfg.fetch_threads),
@@ -660,20 +732,21 @@ class MimiEncoderEngine:
         size per bucket. Returns the number of batch shapes warmed."""
         resample_arg, spf_io, domain_sr = self._resample_plan(sr)
         buckets = self._buckets_for(domain_sr, spf_io)
+        mult = self._batch_multiple
         handles = []
         warmed = 0
         for bucket in buckets:
             budget_len = (
                 bucket if resample_arg is None else bucket * resample_arg[0] // resample_arg[1]
             )
-            full = self.engine_cfg.batch_size_for_bucket(budget_len)
+            full = self.engine_cfg.batch_size_for_bucket(budget_len, multiple_of=mult)
             # one REPRESENTATIVE group size per reachable batch shape:
             # _dispatch maps n_real through batch_size_for_group
             reps = {full: full}
             if include_tails:
                 for n in range(1, full + 1):
                     reps.setdefault(
-                        self.engine_cfg.batch_size_for_group(budget_len, n), n
+                        self.engine_cfg.batch_size_for_group(budget_len, n, multiple_of=mult), n
                     )
             for n_rows in reps.values():
                 rows = [np.zeros(bucket, dtype=np.int16)] * n_rows
@@ -786,6 +859,12 @@ class MimiEncoderEngine:
         changes the wire layout; codes are bit-equal across formats.
         Engine throughput stats are untouched. Returns the chosen format;
         per-format median seconds land in ``self.last_autotune``."""
+        if self._multiprocess:
+            raise RuntimeError(
+                "autotune_transfer times per-process; SPMD multiprocess "
+                "engines must set code_transfer_format explicitly (every "
+                "process must dispatch the same programs)"
+            )
         candidates = ["packed", "padded"]
         if self.num_codebooks % 2 != 0:
             candidates = ["padded"]
@@ -824,6 +903,11 @@ class MimiEncoderEngine:
         per-batch host latency at the cost of pinned and device buffers.
         Returns the chosen depth; per-depth median seconds land in
         ``self.last_autotune_depth``."""
+        if self._multiprocess:
+            raise RuntimeError(
+                "autotune_pipeline_depth times per-process; SPMD "
+                "multiprocess engines must set pipeline_depth explicitly"
+            )
         depths = [int(d) for d in depths]
         if any(d < 1 for d in depths):
             raise ValueError(f"pipeline depths must be >= 1: {depths}")
@@ -857,6 +941,12 @@ class MimiEncoderEngine:
         every policy, so the probe is pure transport scheduling. Returns
         the chosen policy; per-policy median seconds land in
         ``self.last_autotune_drain``."""
+        if self._multiprocess:
+            raise RuntimeError(
+                "autotune_drain_policy: SPMD multiprocess engines always "
+                "drain FIFO (collection must not interleave with the "
+                "collective dispatch schedule)"
+            )
         policies = [str(p) for p in policies]
         allowed = {"fifo", "ready", "threaded"}
         if not set(policies) <= allowed:
@@ -899,6 +989,11 @@ class MimiEncoderEngine:
         it to re-warm the bucket lattices when the probe switches wire
         formats. CLI: ``--code-transfer-format auto-data`` /
         ``--pipeline-depth auto-data``."""
+        if self._multiprocess:
+            raise RuntimeError(
+                "request_autotune: SPMD multiprocess engines must be "
+                "configured explicitly"
+            )
         self._pending_autotune = {
             "transfer": transfer,
             "depth": depth,

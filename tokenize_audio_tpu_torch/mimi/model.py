@@ -32,6 +32,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tokenize_audio_tpu_torch.config import fp32_precision, ieee_fp32
@@ -290,13 +291,22 @@ def _attention_mask(cfg: MimiConfig, t: int, device: torch.device) -> torch.Tens
     return torch.where(allowed, zero, neg)
 
 
-def transformer_apply(params: Params, cfg: MimiConfig, h: torch.Tensor) -> torch.Tensor:
+def transformer_apply(
+    params: Params, cfg: MimiConfig, h: torch.Tensor, group=None
+) -> torch.Tensor:
     """(B, T, C) -> (B, T, C). Mirrors MimiTransformerModel with eager
     attention (modeling_mimi.py:608-703, 922-994): pre-LN, RoPE, fp32
     softmax, LayerScale residuals, bias-free projections, erf GELU MLP.
-    In h's dtype, with LayerNorm, RoPE and softmax in f32 (bf16 mode)."""
+    In h's dtype, with LayerNorm, RoPE and softmax in f32 (bf16 mode).
+
+    Tensor parallel with ``group`` (a mesh's model group) and the layer
+    slices of ``parallel.mesh.shard_params_tp``: each rank runs its own
+    heads and MLP block, and the outputs of the row-parallel ``o`` and
+    ``fc2`` are summed over the group (in the compute dtype) before their
+    LayerScale residual, where XLA puts the psum under the JAX package's
+    sharding."""
     b, t, _ = h.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    hd = cfg.head_dim
     scale = 1.0 / math.sqrt(cfg.head_dim)
     dt = h.dtype
     # cos/sin stay f32: the rotation products compute in f32 (bf16 * f32
@@ -307,6 +317,12 @@ def transformer_apply(params: Params, cfg: MimiConfig, h: torch.Tensor) -> torch
     mask = _attention_mask(cfg, t, h.device)[None, None, :, :].to(dt)
 
     for lp in params:
+        nh = lp["q"].shape[0] // hd  # this rank's heads under tensor parallelism
+        if group is None and nh != cfg.num_attention_heads:
+            raise ValueError(
+                f"a layer with {nh} of {cfg.num_attention_heads} heads is a "
+                "tensor-parallel slice: pass its mesh's model group"
+            )
         x = _layer_norm(h, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
         q = F.linear(x, lp["q"]).view(b, t, nh, hd).transpose(1, 2)
         k = F.linear(x, lp["k"]).view(b, t, nh, hd).transpose(1, 2)
@@ -320,12 +336,16 @@ def transformer_apply(params: Params, cfg: MimiConfig, h: torch.Tensor) -> torch
         att = torch.matmul(aw, v)
         att = att.transpose(1, 2).contiguous().view(b, t, nh * hd)
         att = F.linear(att, lp["o"])
+        if group is not None:
+            dist.all_reduce(att, group=group)
         h = h + lp["ls1"] * att
 
         x = _layer_norm(h, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps)
         x = F.linear(x, lp["fc1"])
         x = F.gelu(x)
         x = F.linear(x, lp["fc2"])
+        if group is not None:
+            dist.all_reduce(x, group=group)
         h = h + lp["ls2"] * x
     return h
 
@@ -410,6 +430,7 @@ def encode(
     code_dtype: str = "int32",
     resample: Optional[Tuple[int, int]] = None,
     transfer: str = "padded",
+    group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Encode (B, T) float32 or int16 audio -> (codes, frame valid), on the
     device the audio and params lie on.
@@ -437,16 +458,22 @@ def encode(
     ``cfg.compute_dtype`` (the conv, transformer and downsample weights are
     cast by ``cast_for_compute``, a no-op on a tree already cast); the
     resample, the in_proj and the RVQ stay IEEE fp32 in every mode.
+
+    ``group`` is the model group of a tensor-parallel mesh, for params from
+    ``parallel.mesh.shard_params_tp`` (see ``transformer_apply``); None
+    runs the whole transformer on this device.
     """
     _check_modes(cfg)
     with fp32_precision(matmul_precision(cfg)):
         return _encode(
             params, cfg, audio, valid, num_quantizers, masked, code_dtype,
-            resample, transfer,
+            resample, transfer, group,
         )
 
 
-def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer):
+def _encode(
+    params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer, group
+):
     dt = compute_dtype(cfg)
     params = cast_for_compute(params, cfg)
     if audio.dtype == torch.int16:
@@ -479,7 +506,7 @@ def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resam
     if not masked:
         valid = None
     x, valid = seanet_encode(params, cfg, x, valid)
-    h = transformer_apply(params["tfm"], cfg, x.transpose(1, 2))
+    h = transformer_apply(params["tfm"], cfg, x.transpose(1, 2), group=group)
     x = h.transpose(1, 2)
     if valid is not None:
         pos = _positions(x.shape[-1], x.device)[None, None, :]

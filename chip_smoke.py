@@ -142,7 +142,26 @@ the run (non-zero exit, no final result line) if its check fails:
                 of frames), a rerun that launches nothing, the monitor's
                 status and verify, the manifests' shards and unit counts,
                 and ``chip_check`` on GPU 0 and at an index with no GPU;
-  9d. downstream — the chain downstream of the encoder, fed by the card: the
+  9d. chaos   — the processors' SIGKILL contract ("kill anywhere, rerun the
+                same command") on the card, the fleet's checkpoint as
+                ``--params``: the YODAS2 command line (upload batch 1,
+                default engine flags otherwise, 32 codebooks) on a 3 x 8-entry
+                mirror (lognormal 1-30 s, a FLAC and a 16 kHz entry per
+                sub-shard) and the parquet-corpus one (People's Speech, 3
+                shards of 8 16 kHz FLAC rows, 8 codebooks), each run once
+                uninterrupted in a child process, then in children
+                SIGKILLed at 0.1 / 0.35 / 0.6 / 0.85 of that run's work
+                window after each run's first evidence of work and rerun
+                until one completes (tests/chaos_utils.py's
+                ``kill_anywhere``; >= 1 kill mid-work), the hub held to the
+                uninterrupted run's (>= 0.999 of frames, every difference a
+                near-tie under the kit's TIE_MARGIN) and a rerun of the
+                finished command skipping everything with no launch; at the
+                same time, children killed during their first-use kernel
+                build (an empty ``_build.BUILD_DIR``), at ``os.replace`` and
+                while nvcc runs: what each left, and a rerun that builds,
+                loads and encodes as this process does;
+  9e. downstream — the chain downstream of the encoder, fed by the card: the
                 YODAS2 command line (default flags: kernel backends, 32
                 codebooks) on a fresh 2 x 24-entry mirror, with both kernels'
                 launches and shapes (the ``downstream_path``); then, each
@@ -157,7 +176,7 @@ the run (non-zero exit, no final result line) if its check fails:
                 against the CPU (kept rows bit-equal, new rows within 1e-6 x
                 max|w|), count_rows and estimate_tokens over every row; the
                 installed transformers and tokenizers, and what they load;
-  9e. mesh    — the in-process mesh (``parallel.mesh``, ``parallel.multihost``)
+  9f. mesh    — the in-process mesh (``parallel.mesh``, ``parallel.multihost``)
                 at full width, 32 codebooks, on the main sub-shard against
                 the solo engine's codes (>= 0.999 of frames, every flip a
                 near-tie under the kit's TIE_MARGIN): world 1 in process on
@@ -224,7 +243,9 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2815,6 +2836,438 @@ def phase_fleet(torch, tmp, params_path):
     })
 
 
+CHAOS_SEED = SEED + 60
+CHAOS_SHARD, CHAOS_SUBSHARDS, CHAOS_ENTRIES = "en000", 3, 8  # YODAS2: lognormal 1-30 s entries
+CHAOS_CORPUS_SHARDS, CHAOS_CORPUS_ROWS = 3, 8  # People's Speech: 16 kHz FLAC rows of 2-15 s
+# SIGKILL delays as shares of the uninterrupted child run's work window (from
+# its first file written under its directories to its exit), measured in this
+# run: a child's pace varied ~1.5x between H100 machines and with the other
+# children running beside it, so fixed delays landed all before any durable
+# output on one machine and after the end on another
+CHAOS_KILL_SHARES = (0.1, 0.35, 0.6, 0.85)
+CHAOS_BUILD_KILL_S = 1.0  # after an nvcc of the build is first seen: mid-compile
+CHAOS_ORPHAN_WAIT_S = 120.0  # for a killed build's nvcc to end on its own
+CHAOS_BUILD_SECONDS = 10.0  # the build child's utterance
+# a processor's command line in a child process: the checkout on sys.path,
+# warnings only (a full pipe would stall it: nothing reads it before the
+# kill), READY once its module is imported, then ``main(argv)``
+CHAOS_CLI = ("import importlib, logging, sys\n"
+             "sys.path.insert(0, sys.argv[1])\n"
+             "logging.basicConfig(level=logging.WARNING)\n"
+             "module = importlib.import_module(sys.argv[2])\n"
+             "print('READY', flush=True)\n"
+             "module.main(sys.argv[3:])\n")
+# the first-use kernel build in a child: BUILD_DIR patched to an empty
+# directory here only, READY, then the engine built and one utterance encoded;
+# with "replace", the child SIGKILLs itself where a build would os.replace a
+# finished library into place
+CHAOS_BUILD_CHILD = r"""
+import json, os, signal, sys
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from tokenize_audio_tpu_torch.ops.cuda import _build
+_build.BUILD_DIR = Path(sys.argv[2])
+if sys.argv[6:] == ["replace"]:
+    real_replace = os.replace
+    def replace(src, dst, *args, **kwargs):
+        if str(src).endswith(".tmp.so"):
+            print("KILL at os.replace " + str(src), flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        return real_replace(src, dst, *args, **kwargs)
+    os.replace = replace
+print("READY", flush=True)
+from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+from tokenize_audio_tpu_torch.mimi import MimiConfig
+from tokenize_audio_tpu_torch.mimi.weights import params_from_safetensors
+cfg = MimiConfig()
+engine = MimiEncoderEngine(params_from_safetensors(sys.argv[3], cfg), cfg,
+                           num_codebooks=cfg.num_quantizers)
+[codes] = engine.encode_batch([np.load(sys.argv[4])])
+np.save(sys.argv[5], codes)
+print("DONE " + json.dumps({"loaded": sorted(_build._libs)}), flush=True)
+"""
+
+
+def paced_child(argv, root, timeout=600):
+    """One uninterrupted child run (output to a file, so no pipe fills):
+    (exit code, output, seconds from its first change under ``root`` to its
+    exit, wall seconds)."""
+    before, seen = file_stamps(root), None
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile() as log:
+        p = subprocess.Popen([sys.executable, *argv], stdout=log, stderr=subprocess.STDOUT)
+        while p.poll() is None and time.perf_counter() - t0 < timeout:
+            if seen is None and file_stamps(root) != before:
+                seen = time.perf_counter()
+            time.sleep(0.02)
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        end = time.perf_counter()
+        log.seek(0)
+        out = log.read().decode(errors="replace")
+    return p.returncode, out, end - (seen or end), end - t0
+
+
+def chaos_children(module, argv_of, progress_of, what, done_token):
+    """The child processes of one command line on the card: an
+    uninterrupted run (the reference, whose work window sets the delays),
+    then ``kill_anywhere`` (tests/chaos_utils.py): each run SIGKILLed at the
+    next of CHAOS_KILL_SHARES of that window after its own first evidence of
+    work (a file under its directory written or removed since it started),
+    then one run to completion. A kill counts as mid-work when
+    ``progress_of(dir)`` (read after it) says the work was not finished: it
+    came after that run's evidence of work. ``argv_of(tag)`` gives (directory,
+    argv). Runs in a worker thread (subprocesses only); returns the runs and
+    kills, each kill with what it left."""
+    from chaos_utils import kill_anywhere, run_child
+
+    ref_dir, ref_argv = argv_of("clean")
+    rc, out, window, wall = paced_child(["-c", CHAOS_CLI, str(ROOT), module, *ref_argv], ref_dir)
+    check(rc == 0 and done_token in out, f"{what}: uninterrupted run exit {rc}:\n{out[-3000:]}")
+    delays = [round(s * window, 3) for s in CHAOS_KILL_SHARES]
+    root, argv = argv_of("chaos")
+    runs, kills, before = [], [], {}
+
+    def changed():
+        return file_stamps(root) != before["stamps"]
+
+    def run(kill_after):
+        before["stamps"] = file_stamps(root)
+        t = time.perf_counter()
+        rc, out, killed = run_child(["-c", CHAOS_CLI, str(ROOT), module, *argv],
+                                    kill_after=kill_after, timeout=600, evidence=changed)
+        runs.append({"kill_after": kill_after, "rc": rc, "killed": killed,
+                     "seconds": time.perf_counter() - t})
+        if not killed and rc != 0:
+            runs[-1]["tail"] = out[-2000:]
+        return rc, out, killed
+
+    def midwork():
+        left = progress_of(root)
+        left["mid_work"] = not left.pop("finished")
+        kills.append({"kill_after": runs[-1]["kill_after"], **left})
+        return left["mid_work"]
+
+    t = time.perf_counter()
+    try:
+        kill_anywhere(run, midwork, delays, kill_attempts=len(delays), done_token=done_token)
+    except AssertionError as e:
+        raise SmokeFailure(f"{what}: {e}; runs {runs}; kills {kills}") from None
+    mid = sum(k["mid_work"] for k in kills)
+    check(mid >= 1, f"{what}: no kill landed mid-work: runs {runs}; kills {kills}")
+    return {"uninterrupted_wall_seconds": wall, "uninterrupted_work_seconds": window,
+            "delays": delays, "runs": runs, "kills": kills, "kill_count": len(kills),
+            "mid_work_kills": mid, "reruns": len(runs) - 1,
+            "kill_loop_seconds": time.perf_counter() - t}
+
+
+def finished_rerun(torch, module, argv):
+    """The command line once more in this process on its finished output:
+    (its report, both kernels' launches)."""
+    (report, _), _, launches = counted_run(torch, lambda: in_process(module, argv))
+    return report, launches
+
+
+def chaos_yodas2(tmp, params_path):
+    """The YODAS2 command line on a 3 x 8-entry mirror: (the children's part,
+    the checks' part) of ``phase_chaos``."""
+    from torch_yodas2_mirror import Entry, write_mirror
+
+    rng = np.random.default_rng(CHAOS_SEED)
+    subshards = []
+    for s in range(CHAOS_SUBSHARDS):
+        subshards.append([])
+        for a in range(CHAOS_ENTRIES):
+            container, sr = ("flac", SR) if a == 1 else ("wav", 16_000 if a == 2 else SR)
+            seconds = float(np.clip(rng.lognormal(math.log(8.0), 0.8), 1.0, 30.0))
+            subshards[-1].append(Entry(f"yt{s}-{a:02d}", tone_pcm(rng, seconds, sr), sr, container,
+                                       lognormal_chunks(rng, seconds)))
+    root = write_mirror(str(Path(tmp) / "chaos_mirror"), CHAOS_SHARD, subshards)
+
+    def argv_of(tag):
+        d = Path(tmp) / f"chaos_yodas2_{tag}"
+        return d, ["--shard-id", CHAOS_SHARD, "--source", f"dir:{root}", "--hub",
+                   f"dir:{d / 'hub'}", "--progress-dir", str(d / "prog"), "--work-dir",
+                   str(d / "work"), "--params", str(params_path), "--upload-batch-size", "1"]
+
+    def progress_of(d):
+        work = d / "work" / CHAOS_SHARD
+        hub = len(list((d / "hub" / "data" / CHAOS_SHARD).glob("*.json")))
+        return {"hub_subshards": hub,
+                "partial_entries": sum(len(p.read_text().splitlines())
+                                       for p in work.glob("*.partial")),
+                "outputs": len(list(work.glob("*.out.json"))),
+                "finished": hub == CHAOS_SUBSHARDS}
+
+    def hub_of(d):
+        got = {}
+        for p in sorted((d / "hub" / "data" / CHAOS_SHARD).glob("*.json")):
+            for e in json.loads(p.read_text()):
+                got.update({cid: np.asarray(c) for cid, c in e["codes"].items()})
+        return got
+
+    def children():
+        return chaos_children("tokenize_audio_tpu_torch.datasets.yodas2", argv_of, progress_of,
+                              "chaos yodas2", '"uploaded"')
+
+    def checks(torch, params, cfg, loop):
+        from tokenize_audio_tpu_torch.datasets import yodas2
+        from tokenize_audio_tpu_torch.datasets.yodas2 import slice_chunks
+        from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+
+        want, (d, argv) = hub_of(argv_of("clean")[0]), argv_of("chaos")
+        got = hub_of(d)
+        check(sorted(got) == sorted(want), f"chaos yodas2: hub chunks {len(got)} vs {len(want)}")
+        rerun, launches = finished_rerun(torch, yodas2, argv)
+        check(rerun["skipped"] == CHAOS_SUBSHARDS and rerun["processed"] == 0
+              and not any(launches.values()),
+              f"chaos yodas2: rerun of the finished shard {rerun}, launches {launches}")
+        # each chunk's audio as the processor cuts it (16 kHz resampled on the card)
+        engine = MimiEncoderEngine(params_from(params_path, cfg), cfg,
+                                   num_codebooks=cfg.num_quantizers)
+        ids, segments = [], []
+        for e in (e for sub in subshards for e in sub):
+            i, seg = slice_chunks(engine.prepare_audio(e.pcm, e.sample_rate), e.text, SR)
+            ids += i
+            segments += seg
+        del engine
+        match = match_within_ties(torch, params, cfg, segments, [got[c] for c in ids],
+                                  [want[c] for c in ids], "chaos yodas2 hub vs uninterrupted")
+        return {"audio_seconds": sum(len(s) for s in segments) / SR, "chunks": len(ids), **loop,
+                "vs_uninterrupted": match, "finished_rerun": rerun,
+                "finished_rerun_launches": launches}
+
+    return children, checks
+
+
+def params_from(params_path, cfg):
+    from tokenize_audio_tpu_torch.mimi.weights import params_from_safetensors
+
+    return params_from_safetensors(str(params_path), cfg)
+
+
+def chaos_corpus(tmp, params_path):
+    """The parquet-corpus command line (People's Speech, default flags, 8
+    books) on 3 shards of 8 FLAC rows: (the children's part, the checks'
+    part) of ``phase_chaos``; every document held to an uninterrupted run's,
+    up to near-ties."""
+    import torch_corpora as tc
+
+    from tokenize_audio_tpu_torch.datasets.parquet_utils import read_parquet, write_parquet
+    from tokenize_audio_tpu_torch.hub import LocalHub
+
+    rng = np.random.default_rng(CHAOS_SEED + 1)
+    src, pcm = LocalHub(str(Path(tmp) / "chaos_ps_src")), {}
+    shards = [f"train-{s:05d}" for s in range(CHAOS_CORPUS_SHARDS)]
+    for shard in shards:
+        rows = []
+        for i in range(CHAOS_CORPUS_ROWS):
+            rid = f"{shard}-utt{i:03d}"
+            pcm[rid] = tc.tone_pcm(rng, float(rng.uniform(2, 15)), 16_000)
+            rows.append({"id": rid, "text": f"utterance {i} of {shard}",
+                         "audio": {"bytes": tc.flac_bytes(pcm[rid], 16_000),
+                                   "path": f"{rid}.flac"}})
+        local = write_parquet(rows, str(Path(tmp) / "chaos_ps_in.parquet"))
+        src.upload_file(local, f"clean/{shard}.parquet")
+    shard_list = Path(tmp) / "chaos_ps_shards.txt"
+    shard_list.write_text("\n".join(shards) + "\n")
+
+    def argv_of(tag):
+        d = Path(tmp) / f"chaos_ps_{tag}"
+        return d, ["--corpus", "peoples_speech", "--split", "clean", "--shard-id-list",
+                   str(shard_list), "--source-hub", f"dir:{src.root}", "--target-hub",
+                   f"dir:{d / 'dst'}", "--work-dir", str(d / "work"), "--progress-dir",
+                   str(d / "prog"), "--params", str(params_path)]
+
+    def progress_of(d):
+        done = len(list((d / "dst" / "clean").glob("*.parquet")))
+        return {"hub_shards": done, "finished": done == len(shards)}
+
+    def docs_of(d):
+        return {f"{p.name}:{r['id']}": r["text"]
+                for p in sorted((d / "dst" / "clean").glob("*.parquet"))
+                for r in read_parquet(str(p))}
+
+    def children():
+        return chaos_children("tokenize_audio_tpu_torch.datasets.parquet_corpus", argv_of,
+                              progress_of, "chaos corpus", '"shard"')
+
+    def checks(torch, params, cfg, loop):
+        from tokenize_audio_tpu_torch.config import CODEBOOK_SIZE, UNICODE_OFFSET_LARGE
+        from tokenize_audio_tpu_torch.core.codes import chars_to_codes
+        from tokenize_audio_tpu_torch.datasets import parquet_corpus
+
+        want, (d, argv) = docs_of(argv_of("clean")[0]), argv_of("chaos")
+        got = docs_of(d)
+        check(len(want) == 2 * len(pcm), f"chaos corpus: {len(want)} documents, {len(pcm)} rows")
+        check(sorted(got) == sorted(want), f"chaos corpus: documents {len(got)} vs {len(want)}")
+        rerun, launches = finished_rerun(torch, parquet_corpus, argv)
+        check([r["status"] for r in rerun] == ["skipped"] * len(shards)
+              and not any(launches.values()),
+              f"chaos corpus: rerun of the finished shards {rerun}, launches {launches}")
+
+        def codes_of(docs, key):
+            [span] = AUDIO_SPAN.findall(docs[key])
+            return np.asarray(chars_to_codes(span, 8, CODEBOOK_SIZE, return_tensors="np",
+                                             unicode_offset=UNICODE_OFFSET_LARGE))
+
+        keys = sorted(want)
+        for k in keys:  # the text around the audio span is the row's own
+            check(AUDIO_SPAN.sub("", got[k]) == AUDIO_SPAN.sub("", want[k]),
+                  f"chaos corpus: {k} differs outside its audio span")
+        rids = [k.split(":", 1)[1].rsplit("_type", 1)[0] for k in keys]
+        match = match_within_ties(torch, params, cfg, [pcm[r] for r in rids],
+                                  [codes_of(got, k) for k in keys],
+                                  [codes_of(want, k) for k in keys],
+                                  "chaos corpus documents vs uninterrupted", sr=16_000)
+        return {"audio_seconds": sum(len(a) for a in pcm.values()) / 16_000, "rows": len(pcm),
+                "documents": len(want), **loop, "vs_uninterrupted": match,
+                "documents_equal": sum(got[k] == want[k] for k in keys),
+                "finished_rerun": rerun, "finished_rerun_launches": launches}
+
+    return children, checks
+
+
+def processes_naming(needle: str) -> dict:
+    """pid -> argv of every live process whose command line holds ``needle``."""
+    out = {}
+    for p in Path("/proc").iterdir():
+        if not p.name.isdigit() or int(p.name) == os.getpid():
+            continue
+        try:
+            argv = (p / "cmdline").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        argv = [a.decode(errors="replace") for a in argv if a]
+        if any(needle in a for a in argv):
+            out[int(p.name)] = argv
+    return out
+
+
+def chaos_build(tmp, params_path):
+    """Children killed during their first-use kernel build (their
+    ``_build.BUILD_DIR`` an empty directory), then rerun: (the children's
+    part, the checks' part) of ``phase_chaos``. One child is killed where it
+    would ``os.replace`` the first finished library into place, one
+    CHAOS_BUILD_KILL_S after its nvcc is first seen: what each left (stale
+    ``*.tmp.so``, an nvcc that outlived its parent), the next build removing
+    a dead builder's file, and the rerun building and loading both libraries
+    and encoding as this process does."""
+    from chaos_utils import run_child
+
+    from tokenize_audio_tpu_torch.ops.cuda import _build
+
+    build_dir = Path(tmp) / "chaos_build"
+    build_dir.mkdir()
+    audio = tone_pcm(np.random.default_rng(CHAOS_SEED + 2), CHAOS_BUILD_SECONDS)
+    np.save(Path(tmp) / "chaos_build_audio.npy", audio)
+
+    def argv(tag, *extra):
+        return ["-c", CHAOS_BUILD_CHILD, str(ROOT), str(build_dir), str(params_path),
+                str(Path(tmp) / "chaos_build_audio.npy"), str(Path(tmp) / f"chaos_build_{tag}.npy"),
+                *extra]
+
+    def tmp_libs():
+        return sorted(p.name for p in build_dir.glob("*.tmp.so"))
+
+    def nvcc_pids():
+        return sorted(pid for pid, a in processes_naming(str(build_dir)).items()
+                      if Path(a[0]).name == "nvcc")
+
+    def children():
+        # 1. killed between nvcc's end and os.replace: a whole library left as .tmp.so
+        rc, out, _ = run_child(argv("replace", "replace"), timeout=600)
+        check(rc == -9 and "KILL at os.replace" in out,
+              f"chaos build: no kill at os.replace (rc {rc}):\n{out[-2000:]}")
+        at_replace = tmp_libs()
+        check(len(at_replace) == 1, f"chaos build: the kill at os.replace left {at_replace}")
+        # 2. killed while nvcc runs; the build first removes step 1's file
+        rc, out, killed = run_child(argv("killed"), kill_after=CHAOS_BUILD_KILL_S, timeout=600,
+                                    evidence=lambda: bool(nvcc_pids()))
+        check(killed and rc == -9, f"chaos build: the kill did not land (rc {rc}):\n{out[-2000:]}")
+        nvcc_left = nvcc_pids()
+        check(nvcc_left, "chaos build: no nvcc ran at the kill")
+        check(at_replace[0] not in tmp_libs(), f"chaos build: {at_replace[0]} was not removed")
+        t_wait = time.perf_counter()
+        while processes_naming(str(build_dir)) and time.perf_counter() - t_wait < CHAOS_ORPHAN_WAIT_S:
+            time.sleep(0.2)
+        orphan_seconds = time.perf_counter() - t_wait
+        stragglers = processes_naming(str(build_dir))
+        for pid in stragglers:  # the phase stops every process it started
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        after_nvcc_kill = tmp_libs()
+        # 3. the rerun: builds both, loads both, leaves no .tmp.so
+        t1 = time.perf_counter()
+        rc, out, _ = run_child(argv("rerun"), timeout=600)
+        rerun_seconds = time.perf_counter() - t1
+        check(rc == 0 and "DONE" in out, f"chaos build: rerun exit {rc}:\n{out[-3000:]}")
+        loaded = json.loads(out.split("DONE ", 1)[1].splitlines()[0])["loaded"]
+        check(loaded == sorted(_build.KERNELS), f"chaos build: rerun loaded {loaded}")
+        libs = sorted(p.name for p in build_dir.glob("*.so") if ".tmp." not in p.name)
+        check(libs == sorted(_build.library_path(n).name for n in _build.KERNELS),
+              f"chaos build: libraries after the rerun {libs}")
+        check(not tmp_libs(), f"chaos build: the rerun left {tmp_libs()}")
+        return {"stale_after_kill_at_replace": at_replace,
+                "kill_after_nvcc_seen": CHAOS_BUILD_KILL_S, "nvcc_at_kill": len(nvcc_left),
+                "nvcc_outlived_parent": bool(nvcc_left), "orphans_ended_seconds": orphan_seconds,
+                "orphans_killed": sorted(stragglers), "stale_after_nvcc_kill": after_nvcc_kill,
+                "rerun_seconds": rerun_seconds, "rerun_loaded": loaded, "rerun_libraries": libs}
+
+    def checks(torch, params, cfg, left):
+        from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+
+        got = np.load(Path(tmp) / "chaos_build_rerun.npy")
+        engine = MimiEncoderEngine(params_from(params_path, cfg), cfg,
+                                   num_codebooks=cfg.num_quantizers)
+        [want] = engine.encode_batch([audio])
+        del engine
+        return {**left, "vs_this_process": match_within_ties(
+            torch, params, cfg, [audio], [got], [want], "chaos build: rerun vs this process")}
+
+    return children, checks
+
+
+def phase_chaos(torch, tmp, params_path):
+    """The processors' SIGKILL contract on the card, "kill anywhere, rerun
+    the same command", three jobs of child processes at once on the one
+    card (the fleet's checkpoint as ``--params``): the YODAS2 and the
+    parquet-corpus command lines each run uninterrupted, then SIGKILLed at
+    CHAOS_KILL_SHARES of that run's work window after each run's first
+    evidence of work and rerun until one completes (tests/chaos_utils.py's
+    ``kill_anywhere``; at least one kill mid-work), each hub held to the
+    uninterrupted run's (>= 0.999 of frames, every difference a near-tie
+    under the kit's TIE_MARGIN, ``match_within_ties``) and a rerun of each
+    finished command in this process skipping everything with no launch;
+    and children killed during their first-use kernel build, then rerun
+    (``chaos_build``). The children's launches are not counted."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if str(TESTS_DIR) not in sys.path:
+        sys.path.insert(0, str(TESTS_DIR))
+    from tokenize_audio_tpu_torch.mimi import MimiConfig, params_to_torch
+
+    t0 = time.perf_counter()
+    jobs = {"yodas2": chaos_yodas2(tmp, params_path), "corpus": chaos_corpus(tmp, params_path),
+            "build": chaos_build(tmp, params_path)}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        running = {name: pool.submit(children) for name, (children, _) in jobs.items()}
+        # every job runs to its end before any failure is raised
+        left = {name: f.result() for name, f in running.items()}
+    children_seconds = time.perf_counter() - t0
+    cfg = MimiConfig()
+    params = params_to_torch(params_from(params_path, cfg))  # on the card, for the replays
+    out = {"phase": "chaos",
+           **{name: checks(torch, params, cfg, left[name]) for name, (_, checks) in jobs.items()},
+           "children_seconds": children_seconds,
+           "children_launches": "not counted: the children are other processes",
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 DOWNSTREAM_SEED = SEED + 40
 DOWNSTREAM_PARQUET_ROWS = 40  # the mirror's 96 documents: two rollovers and a final flush
 DOWNSTREAM_LANGS = ("fr", "de")
@@ -2834,10 +3287,17 @@ def in_process(module, argv):
 
 
 def file_stamps(root) -> dict:
-    """relative path -> (size, mtime_ns) of every file under ``root``."""
-    root = Path(root)
-    return {str(p.relative_to(root)): (p.stat().st_size, p.stat().st_mtime_ns)
-            for p in sorted(root.rglob("*")) if p.is_file()}
+    """relative path -> (size, mtime_ns) of every file under ``root`` (none
+    if it is missing); a file that vanishes while it is read is left out, as
+    the chaos phase polls directories a child is writing."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            with contextlib.suppress(OSError):
+                st = os.stat(os.path.join(dirpath, f))
+                out[os.path.relpath(os.path.join(dirpath, f), root)] = (st.st_size,
+                                                                         st.st_mtime_ns)
+    return out
 
 
 def parquet_rows(read_parquet, root) -> list:
@@ -3251,7 +3711,9 @@ def match_within_ties(torch, params, cfg, audios, got, want, what, sr=SR, cap_se
             check(m is not None, f"{what}: too many differing frames")
             margins += m
     check(same >= 0.999 * frames, f"{what}: {same} of {frames} frames equal")
-    check(max(margins, default=0.0) < TIE_MARGIN, f"{what}: a flip is no near-tie: {margins}")
+    # either side may hold the smaller distance: a tie is small in magnitude
+    check(max(map(abs, margins), default=0.0) < TIE_MARGIN,
+          f"{what}: a flip is no near-tie: {margins}")
     return {"frames": frames, "equal_frames": same, "flip_margins": margins}
 
 
@@ -3806,6 +4268,7 @@ def main(argv=None) -> int:
                 "qualify", phase_qualify, torch, tmp)
             torch.cuda.empty_cache()  # the fleet's children share the card
             timed("fleet", phase_fleet, torch, tmp, checkpoint)
+            timed("chaos", phase_chaos, torch, tmp, checkpoint)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_downstream_") as tmp:
             downstream_launches, downstream_shapes, downstream_rvq_shapes = timed(
                 "downstream", phase_downstream, torch, tmp)

@@ -1,8 +1,10 @@
 """PyTorch port, isolation: no module of the port (nor chip_smoke.py) pulls in
 JAX or the JAX package, loads tokenizers or transformers, or initializes
-torch.distributed on import, and the kernel build fails loudly without
-nvcc."""
+torch.distributed on import; no chaos child of the port and no crash-window
+test imports JAX or the JAX package, even through a test helper; the kernel
+build fails loudly without nvcc and removes what a killed build left."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -69,3 +71,84 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         _build.build(["rvq"])
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("seanet_resblock", "resblock_elu_launch", [])
+
+
+def test_build_removes_a_dead_builders_output(tmp_path, monkeypatch):
+    """A build killed before its ``os.replace`` leaves
+    ``lib<name>-<key>.<pid>.tmp.so``: the next build deletes it when that pid
+    is dead and leaves a live builder's file alone (nvcc stubbed)."""
+    from tokenize_audio_tpu_torch.ops.cuda import _build
+
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    # writes the file after -o, as nvcc would
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\necho lib > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{nvcc.parent}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.BUILD_DIR.mkdir()
+    dead = subprocess.Popen([sys.executable, "-c", "pass"])
+    dead.wait()
+    builder = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(120)"])
+    try:
+        stem = _build.library_path("rvq").stem
+        stale = _build.BUILD_DIR / f"{stem}.{dead.pid}.tmp.so"
+        live = _build.BUILD_DIR / f"{stem}.{builder.pid}.tmp.so"
+        other = _build.BUILD_DIR / "libseanet_resblock-0123456789abcdef.999999999.tmp.so"
+        for f in (stale, live, other):
+            f.write_text("half a library")
+        seconds = _build.build(["rvq"])
+        assert seconds["rvq"] > 0.0 and _build.library_path("rvq").read_text() == "lib\n"
+        assert not stale.exists() and not other.exists()  # dead builders (no pid 999999999)
+        assert live.read_text() == "half a library"  # a live builder's, left alone
+        stale.write_text("half a library")
+        assert _build.build(["rvq"]) == {"rvq": 0.0}  # cached: cleans up all the same
+        assert not stale.exists() and live.exists()
+    finally:
+        builder.kill()
+        builder.wait()
+
+
+TESTS = ROOT / "tests"
+FORBIDDEN = ("jax", "jaxlib", "tokenize_audio_tpu")
+
+
+def _imports(path: Path) -> set:
+    """Every absolute module name ``path`` imports, at any depth of its code."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+def _forbidden_imports(path: Path, seen=None) -> list:
+    """(file, module) for each import of JAX or the JAX package by ``path``
+    or by a test helper it imports (as ``tests.name`` or by its own name)."""
+    seen = set() if seen is None else seen
+    seen.add(path)
+    bad = []
+    for name in sorted(_imports(path)):
+        if name.split(".")[0] in FORBIDDEN:
+            bad.append((path.name, name))
+            continue
+        helper = TESTS / (name.split(".")[-1] + ".py")
+        local = name.startswith("tests.") or "." not in name
+        if local and helper.is_file() and helper not in seen:
+            bad += _forbidden_imports(helper, seen)
+    return bad
+
+
+def test_chaos_children_and_crash_windows_import_no_jax():
+    children = sorted(TESTS.glob("torch_*chaos*_child.py"))
+    windows = sorted(TESTS.glob("test_torch_crash_windows_*.py"))
+    names = {p.name for p in children}
+    for family in ("yodas2", "corpus", "runner", "mls", "emilia", "sampler", "estimate"):
+        assert f"torch_{family}_chaos_child.py" in names
+    assert len(windows) >= 2
+    for path in children + windows:
+        assert _forbidden_imports(path) == [], path.name
+    # the check itself sees an import through a helper
+    assert _forbidden_imports(TESTS / "test_torch_yodas2.py")

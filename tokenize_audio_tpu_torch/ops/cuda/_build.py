@@ -60,13 +60,38 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True  # another user's process
+    return True
+
+
+def remove_stale_outputs() -> None:
+    """Delete each ``lib<name>-<key>.<pid>.tmp.so`` in ``BUILD_DIR`` whose
+    builder ``pid`` is no longer alive: what a build killed before its
+    ``os.replace`` leaves (its ``nvcc`` may still finish writing it). A live
+    builder's file is left to it."""
+    if not BUILD_DIR.is_dir():
+        return
+    for f in BUILD_DIR.glob("*.tmp.so"):
+        pid = f.name[: -len(".tmp.so")].rsplit(".", 1)[-1]
+        if pid.isdigit() and not _pid_alive(int(pid)):
+            f.unlink(missing_ok=True)
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every named kernel whose library is not cached yet, one
     ``nvcc`` process per source, all started together. Returns the build
     seconds per name (0.0 for a cached library); raises on any failure with
     the compiler's output. ``nvcc -Xptxas -v``'s report (registers, shared
-    memory, spills) is kept beside each library as ``.log``."""
+    memory, spills) is kept beside each library as ``.log``. Starts by
+    removing the outputs of dead builders (``remove_stale_outputs``)."""
     names = list(names)
+    remove_stale_outputs()
     todo = [n for n in names if not library_path(n).is_file()]
     seconds = {n: 0.0 for n in names}
     if not todo:

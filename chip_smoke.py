@@ -161,7 +161,27 @@ the run (non-zero exit, no final result line) if its check fails:
                 build (an empty ``_build.BUILD_DIR``), at ``os.replace`` and
                 while nvcc runs: what each left, and a rerun that builds,
                 loads and encodes as this process does;
-  9e. downstream — the chain downstream of the encoder, fed by the card: the
+  9e. scripts — the port's qualification scripts (``tokenize_audio_tpu_torch.
+                scripts``, after ``chaos``) at full width through their entry
+                functions, each at its own defaults: ``precision_probe``
+                (codebooks trained by residual k-means on 2400 s of the
+                model's own pre-RVQ activations, 1500-frame rows of 2.88 M
+                samples through the resblock kernel; TF32 and bf16 against
+                parity on 240 s held out, codebook usage, interleaved
+                timings; the parity codes against the plain backends on the
+                trained params, >= 0.999 of frames, near-ties only; a
+                second training bit-equal),
+                ``split_boundary_census`` (every differing frame within 2
+                frames of a piece boundary), ``seanet_backend_probe``
+                (kernel vs plain, >= 0.999 of frames),
+                ``stream_policy_probe``, ``resampler_sensitivity`` (the
+                production filter restored), and, cut to 16 utterances and
+                one seed, ``parity_census`` (near-ties only) and
+                ``parity_sweep`` (>= 0.999 of frames) with the HF oracle on
+                the CPU; both kernels' launches over the phase and per
+                script, and their shapes (the ``scripts_path``, whose RVQ
+                replay runs on the trained codebooks);
+  9f. downstream — the chain downstream of the encoder, fed by the card: the
                 YODAS2 command line (default flags: kernel backends, 32
                 codebooks) on a fresh 2 x 24-entry mirror, with both kernels'
                 launches and shapes (the ``downstream_path``); then, each
@@ -176,7 +196,7 @@ the run (non-zero exit, no final result line) if its check fails:
                 against the CPU (kept rows bit-equal, new rows within 1e-6 x
                 max|w|), count_rows and estimate_tokens over every row; the
                 installed transformers and tokenizers, and what they load;
-  9f. mesh    — the in-process mesh (``parallel.mesh``, ``parallel.multihost``)
+  9g. mesh    — the in-process mesh (``parallel.mesh``, ``parallel.multihost``)
                 at full width, 32 codebooks, on the main sub-shard against
                 the solo engine's codes (>= 0.999 of frames, every flip a
                 near-tie under the kit's TIE_MARGIN): world 1 in process on
@@ -194,19 +214,22 @@ the run (non-zero exit, no final result line) if its check fails:
                 runs past its limit fails the run with its log;
  10. replay   — the resblock kernel at each shape recorded on the main path,
                 the YODAS2 path, the bench, the corpora, the kit, the
-                downstream encode and the mesh: agreement with its plain
-                version, CUDA-event times and the FP32 bound, summed per C as
-                count x ms (the ``main_path``, ``yodas2_path``,
-                ``bench_path``, ``corpus_path``, ``qualify_path``,
-                ``downstream_path`` and ``mesh_path`` entries of its record);
+                downstream encode, the mesh and the scripts: agreement with
+                its plain version, CUDA-event times and the FP32 bound,
+                summed per C as count x ms (the ``main_path``,
+                ``yodas2_path``, ``bench_path``, ``corpus_path``,
+                ``qualify_path``, ``downstream_path``, ``mesh_path`` and
+                ``scripts_path`` entries of its record);
  11. rvq_replay — the RVQ kernel at each recorded (N, K) of the main,
-                stream, YODAS2, bench, corpus, qualify, downstream and mesh
-                paths, on the model's codebooks: code agreement with its
+                stream, YODAS2, bench, corpus, qualify, downstream, mesh and
+                scripts paths, on the model's codebooks (the scripts': the
+                k-means ones they trained): code agreement with its
                 plain version (first divergences must be near-ties),
                 CUDA-event times and the FP32 bound, summed as count x ms
                 (the ``main_path``, ``stream_path``, ``yodas2_path``,
                 ``bench_path``, ``corpus_path``, ``qualify_path``,
-                ``downstream_path`` and ``mesh_path`` entries of its record);
+                ``downstream_path``, ``mesh_path`` and ``scripts_path``
+                entries of its record);
  12. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
@@ -678,12 +701,9 @@ def phase_main(torch):
           "the two backends' batched runs made the same RVQ calls")
     margins, call_frames = [], 0
     for (_, got), (emb, want) in zip(kernel_rvq.calls, plain_rvq.calls):
-        got, want = got.cpu().numpy(), want.cpu().numpy()
-        for b in np.nonzero((got != want).any(axis=(1, 2)))[0]:
-            call_frames += int((got[b] != want[b]).any(axis=0).sum())
-            m = flip_margins(torch, plain_engine.params["rvq"], emb[b:b + 1], got[b], want[b])
-            check(m is not None, "kernel vs torch backend: too many differing frames")
-            margins += m
+        m, n = row_tie_margins(torch, plain_engine.params["rvq"], emb, got.cpu().numpy(),
+                               want.cpu().numpy(), "kernel vs torch backend")
+        margins, call_frames = margins + m, call_frames + n
     # every differing frame of the returned codes is a frame of some call
     check(call_frames >= int((~frames_same).sum()),
           f"the batched RVQ calls hold {call_frames} differing frames, "
@@ -3268,6 +3288,154 @@ def phase_chaos(torch, tmp, params_path):
     return out
 
 
+# the split-boundary contract: how far from a piece boundary a frame may differ
+SCRIPTS_BOUNDARY_FRAMES = 2
+SCRIPTS_CUTS = {"parity_census": ["--seeds", "0", "--n", "16"], "parity_sweep": ["--n", "16"]}
+
+
+def phase_scripts(torch):
+    """The port's qualification scripts (``tokenize_audio_tpu_torch.scripts``)
+    on the card at full kyutai/mimi width, each through its entry function
+    with its own defaults (the HF-oracle ones cut to ``SCRIPTS_CUTS``), with
+    both kernels' launches and shapes counted over the phase and per
+    script:
+
+    - ``precision_probe``: codebooks trained by residual k-means on the
+      model's own pre-RVQ activations (2400 s, 1500-frame rows of 2.88 M
+      samples through the resblock kernel), then TF32 and bf16 against
+      parity on 240 s held out, with interleaved timings; the parity codes
+      (both kernels, on the k-means codebooks) held against an encode with
+      the plain backends on the same trained params (>= 0.999 of frames,
+      every first divergence a near-tie under the kit's TIE_MARGIN); a
+      second training (not counted) must give the same codebooks;
+    - ``split_boundary_census``: every differing frame within
+      SCRIPTS_BOUNDARY_FRAMES of a piece boundary;
+    - ``seanet_backend_probe`` (kernel vs plain SEANet, >= 0.999 of
+      frames), ``stream_policy_probe`` and ``resampler_sensitivity`` (the
+      production filter back in place after it);
+    - ``parity_census`` (every flip a near-tie) and ``parity_sweep`` (>=
+      0.999 of frames), the HF oracle on the CPU.
+
+    Returns launches (total and per script), the shapes, and the trained
+    codebooks (for the RVQ replay)."""
+    import tokenize_audio_tpu_torch.core.audio as audio_mod
+    from tokenize_audio_tpu_torch.mimi.model import encode
+    from tokenize_audio_tpu_torch.qualify import TIE_MARGIN
+    from tokenize_audio_tpu_torch.scripts import (
+        bf16_qualification,
+        parity_census,
+        parity_sweep,
+        precision_probe,
+        resampler_sensitivity,
+        seanet_backend_probe,
+        split_boundary_census,
+        stream_policy_probe,
+    )
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    production_filter = audio_mod._kaiser_sinc_filter
+    per_script, seconds = {}, {}
+    with KernelSpy() as kernels:
+        torch.cuda.synchronize()
+
+        def run(name, fn, *args):
+            # each script's launches, read with the card synchronised
+            before = kernels.launches()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):  # the phase's line carries it
+                out = fn(*args)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            after = kernels.launches()
+            per_script[name] = {k: after[k] - before[k] for k in after}
+            return out
+
+        report, state = run("precision_probe", precision_probe.run,
+                            precision_probe.parser().parse_args([]), dev)
+        # the first stage's launches on the training's 1500-frame rows
+        pre_rvq_rows = kernels.shapes[(1, state["cfgs"]["highest"].num_filters, 1500 * SPF)]
+        result, rows = run("split_boundary_census", split_boundary_census.main, [])
+        backends = run("seanet_backend_probe", seanet_backend_probe.main, [])
+        stream = run("stream_policy_probe", stream_policy_probe.main, [])
+        resampler = run("resampler_sensitivity", resampler_sensitivity.main, [])
+        parity, _ = run("parity_census", parity_census.main, SCRIPTS_CUTS["parity_census"])
+        sweep = run("parity_sweep", parity_sweep.main, SCRIPTS_CUTS["parity_sweep"])
+        launches = kernels.launches()
+    shapes, rvq_shapes = kernels.shapes, kernels.rvq_shapes
+    check(all(n > 0 for n in launches.values()), f"kernel launches in the scripts: {launches}")
+    check(sum(shapes.values()) == launches["resblock_elu"]
+          and sum(rvq_shapes.values()) == launches["rvq_quantize"],
+          f"scripts shapes vs launches {launches}")
+    check(per_script["precision_probe"]["rvq_quantize"] > 0,
+          f"the RVQ kernel on the k-means codebooks: {per_script['precision_probe']}")
+    check(pre_rvq_rows > 0, "the resblock kernel on 2.88 M-sample rows: no launch")
+
+    # the probe's parity codes (both kernels) against the plain backends on
+    # the same trained params: near-ties only, replayed on the plain RVQ input
+    cfg = state["cfgs"]["highest"]
+    plain = dataclasses.replace(cfg, rvq_backend="torch", seanet_backend="torch")
+    with RvqCallSpy() as plain_rvq:
+        want, _ = encode(state["dparams"], plain, state["rows"], state["valid"],
+                         num_quantizers=len(report["usage"]))
+    got, want = state["codes"]["highest"], want.cpu().numpy()
+    frames_same = (got == want).all(axis=1)
+    margins, differing = row_tie_margins(torch, state["dparams"]["rvq"], plain_rvq.calls[0][0],
+                                         got, want, "precision probe kernel vs torch backends")
+    check(differing == int((~frames_same).sum()), "the plain run's one RVQ call holds the codes")
+    check(frames_same.mean() >= 0.999,
+          f"precision probe kernel vs torch backends: frame match {frames_same.mean()}")
+    check(max(map(abs, margins), default=0.0) < TIE_MARGIN,
+          f"precision probe kernel vs torch backends: a flip is no near-tie: {margins}")
+    check(min(report["usage"]) > cfg.codebook_size // 8,
+          f"k-means codebook usage collapsed: {report['usage']}")
+    heads = {h: state["dparams"]["rvq"][h]["embed"] for h in ("semantic", "acoustic")}
+    del state
+    # a decision-grade oracle is repeatable: a second training on the card
+    # gives the same codebooks, bit for bit
+    args = precision_probe.parser().parse_args([])
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = bf16_qualification.trained_params(cfg, args.books, args.train_sec,
+                                                  args.kmeans_iters, dev)
+    check(all(np.array_equal(again["rvq"][h]["embed"], e.cpu().numpy()) for h, e in heads.items()),
+          "the k-means codebooks differ between two trainings on the card")
+
+    check(result["worst_distance_frames"] <= SCRIPTS_BOUNDARY_FRAMES,
+          f"split-boundary census: a differing frame {result['worst_distance_frames']} frames "
+          f"from a boundary (contract: {SCRIPTS_BOUNDARY_FRAMES})")
+    check(backends["frame_agreement"] >= 0.999,
+          f"SEANet kernel vs torch backend frame agreement {backends['frame_agreement']}")
+    check(audio_mod._kaiser_sinc_filter is production_filter,
+          "resampler_sensitivity left another filter design in place")
+    check(parity["census"]["max_rel_margin"] is None
+          or parity["census"]["max_rel_margin"] < TIE_MARGIN,
+          f"parity census: a flip is no near-tie: {parity['census']}")
+    check(sweep["frame_exact_match"] >= 0.999, f"parity sweep: {sweep}")
+    for rep in (stream, sweep, parity["census"]):
+        check(rep["device"] == torch.cuda.get_device_name(0), f"a script ran on {rep['device']}")
+    out = {
+        "phase": "scripts",
+        "width": "MimiConfig() (kyutai/mimi): 8 layers, 512 wide, 2048-entry books",
+        "precision_probe": {**report,
+                            "kernel_vs_torch_backends_frame_match": float(frames_same.mean()),
+                            "kernel_vs_torch_backends_flip_margins": margins},
+        "split_boundary_census": {**result, "rows": rows},
+        "seanet_backend_probe": backends,
+        "stream_policy_probe": stream,
+        "resampler_sensitivity": resampler,
+        "parity_census": parity["census"],
+        "parity_sweep": sweep,
+        "cuts": SCRIPTS_CUTS,
+        "launches": launches,
+        "launches_per_script": per_script,
+        "resblock_launches_on_2_88M_sample_rows": pre_rvq_rows,
+        "script_seconds": seconds,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(out)
+    return launches, per_script, shapes, rvq_shapes, heads
+
+
 DOWNSTREAM_SEED = SEED + 40
 DOWNSTREAM_PARQUET_ROWS = 40  # the mirror's 96 documents: two rollovers and a final flush
 DOWNSTREAM_LANGS = ("fr", "de")
@@ -3638,6 +3806,19 @@ MESH_16K_SECONDS = (2.0, 4.5, 7.0, 9.5, 12.0, 14.5, 17.0, 20.0)  # fused 16 kHz 
 MESH_TAIL_SAMPLES = (SPF + 7, 3 * SPF, 2 * SPF - 11, SPF // 2, 5 * SPF + 3)
 MESH_TAIL_CFG = dict(batch_size=4, min_bucket_seconds=0.05, max_chunk_seconds=0.4,
                      code_transfer_format="packed")
+
+
+def row_tie_margins(torch, rvq_params, emb, got, want, what):
+    """(margins, differing frames) of two batched runs' codes ``got`` and
+    ``want`` ((B, K, T) each): each differing row's ``flip_margins``,
+    replayed on ``emb`` (B, hidden, T), the RVQ input of ``want``'s run."""
+    margins, frames = [], 0
+    for b in np.nonzero((got != want).any(axis=(1, 2)))[0]:
+        frames += int((got[b] != want[b]).any(axis=0).sum())
+        m = flip_margins(torch, rvq_params, emb[b:b + 1], got[b], want[b])
+        check(m is not None, f"{what}: too many differing frames")
+        margins += m
+    return margins, frames
 
 
 def mesh_inputs():
@@ -4100,11 +4281,12 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path"):
     return summary
 
 
-def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras, path="main_path"):
+def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras, path="main_path",
+                     heads=None):
     """The RVQ kernel at every (N, K) a path (``path``: the main path's or
     the bench's) launched it with, on
-    the model's codebooks (K = 1: the semantic book, else the first K
-    acoustic ones) and standard-normal rows: code agreement with the plain
+    the model's codebooks or ``heads`` (by head; K = 1: the semantic book,
+    else the first K acoustic ones) and standard-normal rows: code agreement with the plain
     version (every first divergence a near-tie; >= 0.999 of the path's
     codes, counted by launch: one near-tie flip at an early book of a
     300-row shape changes over 0.1 % of that shape's codes), CUDA-event times of
@@ -4118,9 +4300,10 @@ def phase_rvq_replay(torch, rvq_shapes, peak_flops, peak_bw, extras, path="main_
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    params = random_params(MimiConfig(), seed=SEED)
-    heads = {h: torch.from_numpy(params["rvq"][h]["embed"]).to(dev)
-             for h in ("semantic", "acoustic")}
+    if heads is None:
+        params = random_params(MimiConfig(), seed=SEED)
+        heads = {h: torch.from_numpy(params["rvq"][h]["embed"]).to(dev)
+                 for h in ("semantic", "acoustic")}
     rng = np.random.default_rng(SEED + 4)
     rows = []
     with ieee_fp32():
@@ -4269,6 +4452,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()  # the fleet's children share the card
             timed("fleet", phase_fleet, torch, tmp, checkpoint)
             timed("chaos", phase_chaos, torch, tmp, checkpoint)
+        scripts_launches, scripts_per_script, scripts_shapes, scripts_rvq_shapes, kmeans_heads = (
+            timed("scripts", phase_scripts, torch))
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_downstream_") as tmp:
             downstream_launches, downstream_shapes, downstream_rvq_shapes = timed(
                 "downstream", phase_downstream, torch, tmp)
@@ -4285,6 +4471,8 @@ def main(argv=None) -> int:
             r["qualify_launches"] = {e: n[r["name"]] for e, n in qualify_launches.items()}
             r["downstream_launches"] = downstream_launches[r["name"]]
             r["mesh_launches"] = mesh_launches[r["name"]]
+            r["scripts_launches"] = {"total": scripts_launches[r["name"]],
+                                     **{k: n[r["name"]] for k, n in scripts_per_script.items()}}
         t = time.perf_counter()
         rb = next(r for r in records if r["name"] == "resblock_elu")
         rb["main_path"] = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
@@ -4300,6 +4488,8 @@ def main(argv=None) -> int:
                                              path="downstream_path")
         rb["mesh_path"] = phase_replay(torch, mesh_shapes, peak_flops, peak_bw, {},
                                        path="mesh_path")
+        rb["scripts_path"] = phase_replay(torch, scripts_shapes, peak_flops, peak_bw, {},
+                                          path="scripts_path")
         times["replay"] = time.perf_counter() - t
         t = time.perf_counter()
         rq = next(r for r in records if r["name"] == "rvq_quantize")
@@ -4312,6 +4502,9 @@ def main(argv=None) -> int:
                                  ("downstream_path", downstream_rvq_shapes, {}),
                                  ("mesh_path", mesh_rvq_shapes, {})):
             rq[path] = phase_rvq_replay(torch, found, peak_flops, peak_bw, ext, path=path)["total"]
+        # the scripts' RVQ launches replay on the k-means codebooks they trained
+        rq["scripts_path"] = phase_rvq_replay(torch, scripts_rvq_shapes, peak_flops, peak_bw, {},
+                                              path="scripts_path", heads=kmeans_heads)["total"]
         times["rvq_replay"] = time.perf_counter() - t
         timed("tie", phase_tie, torch)
     except SmokeFailure as e:

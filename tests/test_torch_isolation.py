@@ -1,5 +1,6 @@
 """PyTorch port, isolation: no module of the port (nor chip_smoke.py) pulls in
-JAX or the JAX package, loads tokenizers or transformers, or initializes
+JAX or the JAX package (the ported scripts' shell wrappers name none of its
+modules either), loads tokenizers or transformers, or initializes
 torch.distributed on import; no chaos child of the port and no crash-window
 test imports JAX or the JAX package, even through a test helper; the kernel
 build fails loudly without nvcc and removes what a killed build left."""
@@ -13,6 +14,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPTS = ("", ".bf16_qualification", ".precision_probe", ".split_boundary_census",
+           ".resampler_sensitivity", ".seanet_backend_probe", ".stream_policy_probe",
+           ".parity_census", ".parity_sweep", ".pipeline_bench")
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -44,7 +49,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     names, bad, heavy = out.stdout.strip().splitlines()[-3:]
     names = names.split(",")
-    assert len(names) >= 65  # every module of the slices so far was imported
+    assert len(names) >= 75  # every module of the slices so far was imported
     for name in ("benchmark", "io.mp3enc", "datasets.yodas2", "engine.encoder",
                  "mimi.streaming", "mimi.decoder", "codec", "core.codes", "__main__",
                  "datasets.base", "datasets.parquet_utils", "datasets.parquet_corpus",
@@ -53,7 +58,8 @@ def test_port_imports_no_jax():
                  "runner.monitor", "datasets.pretrain_converter", "datasets.derivatives",
                  "datasets.cvss", "bpe", "bpe.sampler", "bpe.trainer", "bpe.surgery",
                  "analytics", "analytics.count_rows", "analytics.estimate_tokens",
-                 "analytics.validate", "parallel", "parallel.mesh", "parallel.multihost"):
+                 "analytics.validate", "parallel", "parallel.mesh", "parallel.multihost",
+                 *(f"scripts{s}" for s in SCRIPTS)):
         assert f"tokenize_audio_tpu_torch.{name}" in names
     assert bad == "[]", f"the port imported {bad}"
     # tokenizers and transformers load where they are used (bpe, analytics,
@@ -152,3 +158,17 @@ def test_chaos_children_and_crash_windows_import_no_jax():
         assert _forbidden_imports(path) == [], path.name
     # the check itself sees an import through a helper
     assert _forbidden_imports(TESTS / "test_torch_yodas2.py")
+
+
+def test_scripts_name_no_jax_module():
+    """Each ported script imports nothing of JAX or the JAX package at any
+    depth of its code, and each shell wrapper runs only the port's modules."""
+    scripts = ROOT / "tokenize_audio_tpu_torch" / "scripts"
+    pys = sorted(scripts.glob("*.py"))
+    assert len(pys) == len(SCRIPTS)
+    for path in pys:
+        assert not [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN], path.name
+    for name in ("run_yodas2_pod.sh", "monitor.sh"):
+        text = (scripts / name).read_text()
+        assert "python -m tokenize_audio_tpu_torch." in text, name
+        assert "tokenize_audio_tpu." not in text and "TPU_VISIBLE" not in text, name

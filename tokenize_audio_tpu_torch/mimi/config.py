@@ -80,6 +80,12 @@ class MimiConfig:
     #               parity. On the CPU both equal "highest".
     # The resample, the quantizer in_proj and the RVQ always stay IEEE:
     # they are argmin-adjacent.
+    # MEASURED against "highest" on an NVIDIA H100 80GB HBM3 (700.00 W) on
+    # k-means-realistic codebooks (this package's scripts.precision_probe:
+    # residual k-means on the model's own pre-RVQ activations; 3000
+    # frames, 8 books): "high" (TF32) 50.6 % of codes, 42.5 % of frames; bf16 27.4 %
+    # of codes, 3.9 % of frames. Random codebooks overstate both (98.7 %
+    # and 74.2 % of codes), so neither mode is near parity.
     matmul_precision: str = "highest"
 
     @property

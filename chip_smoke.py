@@ -181,7 +181,22 @@ the run (non-zero exit, no final result line) if its check fails:
                 the CPU; both kernels' launches over the phase and per
                 script, and their shapes (the ``scripts_path``, whose RVQ
                 replay runs on the trained codebooks);
-  9f. downstream — the chain downstream of the encoder, fed by the card: the
+  9f. probes  — the port's A/B probes, warmup receipt and conv-layout probe
+                (``tokenize_audio_tpu_torch.scripts``, after ``scripts``) at
+                full width through their entry functions, each at its own
+                defaults but for ``PROBES_CUTS`` (3 timing rounds where the
+                JAX scripts run 5): drain policy, wire format, fetch dtype,
+                pipeline depth and samples budget (each asserting its
+                variants' codes bit-equal), fetch-ahead (4 sub-shards in
+                every run, the runs' hubs identical), bucket growth (codes
+                within the kit's rule: >= 0.999 of frames, every flip a
+                near-tie), the tail-ladder warmup receipt (batch shapes per
+                lattice > 0), and the conv-layout probe (channels-last
+                SEANet within 1e-4 x max|NCL| of the plain NCL one; each of
+                its three SEANets launch-counted and profiled: the cuDNN
+                kernels each layout runs); both kernels' launches per
+                script and their shapes (the ``probes_path``);
+  9g. downstream — the chain downstream of the encoder, fed by the card: the
                 YODAS2 command line (default flags: kernel backends, 32
                 codebooks) on a fresh 2 x 24-entry mirror, with both kernels'
                 launches and shapes (the ``downstream_path``); then, each
@@ -196,7 +211,7 @@ the run (non-zero exit, no final result line) if its check fails:
                 against the CPU (kept rows bit-equal, new rows within 1e-6 x
                 max|w|), count_rows and estimate_tokens over every row; the
                 installed transformers and tokenizers, and what they load;
-  9g. mesh    — the in-process mesh (``parallel.mesh``, ``parallel.multihost``)
+  9h. mesh    — the in-process mesh (``parallel.mesh``, ``parallel.multihost``)
                 at full width, 32 codebooks, on the main sub-shard against
                 the solo engine's codes (>= 0.999 of frames, every flip a
                 near-tie under the kit's TIE_MARGIN): world 1 in process on
@@ -214,22 +229,23 @@ the run (non-zero exit, no final result line) if its check fails:
                 runs past its limit fails the run with its log;
  10. replay   — the resblock kernel at each shape recorded on the main path,
                 the YODAS2 path, the bench, the corpora, the kit, the
-                downstream encode, the mesh and the scripts: agreement with
-                its plain version, CUDA-event times and the FP32 bound,
-                summed per C as count x ms (the ``main_path``,
+                downstream encode, the mesh, the scripts and the probes:
+                agreement with its plain version, CUDA-event times and the
+                FP32 bound, summed per C as count x ms (the ``main_path``,
                 ``yodas2_path``, ``bench_path``, ``corpus_path``,
-                ``qualify_path``, ``downstream_path``, ``mesh_path`` and
-                ``scripts_path`` entries of its record);
+                ``qualify_path``, ``downstream_path``, ``mesh_path``,
+                ``scripts_path`` and ``probes_path`` entries of its record;
+                the probes' shapes timed over 3 runs each, the others' 7);
  11. rvq_replay — the RVQ kernel at each recorded (N, K) of the main,
-                stream, YODAS2, bench, corpus, qualify, downstream, mesh and
-                scripts paths, on the model's codebooks (the scripts': the
-                k-means ones they trained): code agreement with its
+                stream, YODAS2, bench, corpus, qualify, downstream, mesh,
+                scripts and probes paths, on the model's codebooks (the
+                scripts': the k-means ones they trained): code agreement with its
                 plain version (first divergences must be near-ties),
                 CUDA-event times and the FP32 bound, summed as count x ms
                 (the ``main_path``, ``stream_path``, ``yodas2_path``,
                 ``bench_path``, ``corpus_path``, ``qualify_path``,
-                ``downstream_path``, ``mesh_path`` and ``scripts_path``
-                entries of its record);
+                ``downstream_path``, ``mesh_path``, ``scripts_path`` and
+                ``probes_path`` entries of its record);
  12. tie      — a 3 s utterance encoded on the CPU (plain path, the path the
                 CPU tests hold bit-equal to the JAX package) and on the card.
 
@@ -3436,6 +3452,150 @@ def phase_scripts(torch):
     return launches, per_script, shapes, rvq_shapes, heads
 
 
+# the A/B probes in the order they run; each at its own defaults but for
+# PROBES_CUTS (five timing rounds cut to three)
+PROBES = ("drain_policy_probe", "fetch_ahead_probe", "fetch_dtype_probe", "fetch_pack_probe",
+          "growth_probe", "pipeline_depth_probe", "samples_budget_probe",
+          "warmup_tails_receipt", "conv_layout_probe")
+PROBES_CUTS = {"drain_policy_probe": ["3"], "fetch_pack_probe": ["--rounds", "3"],
+               "growth_probe": ["--rounds", "3"], "pipeline_depth_probe": ["3"],
+               "samples_budget_probe": ["3"]}
+# NLC vs NCL plain SEANet, x max|NCL|: the bar the replay holds the resblock
+# kernel to against its plain version (fp32 sums in another order, here
+# over the SEANet's 14 convs)
+PROBES_LAYOUT_RTOL = 1e-4
+
+
+LAYOUT_CHILD = ("import json, torch, chip_smoke; "
+                "print(json.dumps(chip_smoke.layout_profiles(torch)))")
+
+
+def layout_profiles(torch, batch: int = 16, seconds: float = 20.0) -> dict:
+    """The conv-layout probe's three SEANets at its defaults, each
+    launch-counted (the kernel stage launches the resblock kernel, the
+    plain ones nothing), timed by CUDA events, and profiled
+    (``device_breakdown``: which cuDNN kernels each layout runs), up to
+    three times until the profile's device time reaches 0.9 of the event
+    time (``complete``)."""
+    from tokenize_audio_tpu_torch.config import fp32_precision
+    from tokenize_audio_tpu_torch.scripts import conv_layout_probe
+
+    out = {}
+    with KernelSpy(active=False) as kernels, fp32_precision("ieee"), torch.no_grad():
+        _, _, audio, _, seanets = conv_layout_probe.setup(batch, seconds, torch.device("cuda"))
+        for line, sea in seanets.items():
+            kernels.reset()
+            sea(audio)
+            torch.cuda.synchronize()
+            row = {"launches": kernels.launches(), "event_ms": cuda_ms(torch, lambda: sea(audio))}
+            for attempt in range(3):
+                row["profile"] = device_breakdown(torch, lambda: sea(audio))
+                row["complete"] = row["profile"].get("device_ms", 0.0) >= 0.9 * row["event_ms"]
+                if row["complete"]:
+                    break
+            out[line.strip()] = row
+    return out
+
+
+def phase_probes(torch):
+    """The port's interleaved A/B probes, warmup receipt and conv-layout probe
+    (``tokenize_audio_tpu_torch.scripts``) on the card at full kyutai/mimi
+    width, each through its entry function at its own defaults but for
+    ``PROBES_CUTS``, with both kernels' launches and shapes counted per
+    script:
+
+    - the transport probes (drain policy, wire format, fetch dtype,
+      pipeline depth) assert their variants' codes bit-equal; fetch-ahead:
+      4 sub-shards in every run, every run's hub the same;
+    - samples budget asserts bit-equal codes too; growth pads to another
+      lattice's lengths, where the card's convs sum in another order: its
+      codes within the kit's rule (>= 0.999 of frames equal, every flip a
+      near-tie under TIE_MARGIN; asserted by the probe, held again here);
+    - the warmup receipt: programs > 0 per lattice;
+    - the conv-layout probe: its NLC SEANet within PROBES_LAYOUT_RTOL x
+      max|NCL| of the plain NCL one; then its three SEANets again in a
+      child process (``layout_profiles``).
+
+    A probe's failed assertion fails the phase after every probe has run.
+    Returns launches (total and per script) and the shapes."""
+    import importlib
+
+    from tokenize_audio_tpu_torch.qualify import TIE_MARGIN
+
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    per_script, seconds, reports, failures = {}, {}, {}, {}
+    with KernelSpy() as kernels:
+        for probe in PROBES:
+            mod = importlib.import_module(f"tokenize_audio_tpu_torch.scripts.{probe}")
+            before = kernels.launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):  # the phase's line carries it
+                    reports[probe] = mod.main(PROBES_CUTS.get(probe, []))
+            except AssertionError as e:
+                failures[probe] = f"{type(e).__name__}: {e}"
+            torch.cuda.synchronize()
+            seconds[probe] = time.perf_counter() - t
+            after = kernels.launches()
+            per_script[probe] = {k: after[k] - before[k] for k in after}
+        launches = kernels.launches()
+        kernels.reset()
+    shapes, rvq_shapes = kernels.shapes, kernels.rvq_shapes
+    # the conv-layout probe's SEANets in a fresh process: late in a long run
+    # the profiler here dropped most kernels' events
+    child = subprocess.run([sys.executable, "-c", LAYOUT_CHILD], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, f"conv layout child failed:\n{child.stderr[-3000:]}")
+    layouts = json.loads(child.stdout.strip().splitlines()[-1])
+    summaries = {p: {k: v for k, v in rep.items() if k != "codes"} for p, rep in reports.items()}
+    if failures:
+        emit({"phase": "probes", "failures": failures, "reports": summaries,
+              "launches_per_script": per_script, "script_seconds": seconds})
+    check(not failures, f"probes failed: {failures}")
+    for probe, rep in reports.items():
+        check(rep["device"] == name, f"{probe} ran on {rep['device']}")
+        check(all(n > 0 for n in per_script[probe].values()),
+              f"{probe} launched {per_script[probe]}")
+    check(sum(shapes.values()) == launches["resblock_elu"]
+          and sum(rvq_shapes.values()) == launches["rvq_quantize"],
+          f"probes shapes vs launches {launches}")
+    fa = reports["fetch_ahead_probe"]
+    check(len(fa["processed"]) == 1 + 2 * fa["rounds"] and set(fa["processed"].values()) == {4},
+          f"fetch_ahead sub-shards per run: {fa['processed']}")
+    check(len(set(fa["hub_digests"].values())) == 1, "fetch_ahead: the runs' hubs differ")
+    for g, t in reports["growth_probe"]["ties"].items():
+        check(t["equal_frames"] >= 0.999 * t["frames"]
+              and max(map(abs, t["flip_margins"]), default=0.0) < TIE_MARGIN,
+              f"growth {g}: {t['equal_frames']} of {t['frames']} frames, "
+              f"margins {t['flip_margins']}")
+    for lat in reports["warmup_tails_receipt"]["result"]["per_lattice"]:
+        check(lat["programs"] > 0, f"warmup receipt: no program at {lat['sr']} Hz")
+    lay = reports["conv_layout_probe"]
+    check(lay["nlc_vs_ncl_torch_maxdiff_full"]
+          <= PROBES_LAYOUT_RTOL * lay["ncl_torch_max_abs_full"],
+          f"conv layout: NLC vs NCL torch {lay['nlc_vs_ncl_torch_maxdiff_full']} > "
+          f"{PROBES_LAYOUT_RTOL} x {lay['ncl_torch_max_abs_full']}")
+    check(layouts["seanet NCL kernel"]["launches"]["resblock_elu"] > 0
+          and layouts["seanet NCL torch"]["launches"]["resblock_elu"] == 0
+          and layouts["seanet NLC"]["launches"]["resblock_elu"] == 0,
+          f"conv layout SEANet launches: { {k: v['launches'] for k, v in layouts.items()} }")
+    out = {
+        "phase": "probes",
+        "width": "MimiConfig() (kyutai/mimi): 8 layers, 512 wide, 2048-entry books",
+        "reports": summaries,
+        "layouts": layouts,
+        "cuts": PROBES_CUTS,
+        "launches": launches,
+        "launches_per_script": per_script,
+        "script_seconds": seconds,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(out)
+    return launches, per_script, shapes, rvq_shapes
+
+
 DOWNSTREAM_SEED = SEED + 40
 DOWNSTREAM_PARQUET_ROWS = 40  # the mirror's 96 documents: two rollovers and a final flush
 DOWNSTREAM_LANGS = ("fr", "de")
@@ -4192,15 +4352,16 @@ def start_extra_build(name: str, src: str, entry: str, argtypes):
     return finish
 
 
-def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path"):
+def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path", reps=(2, 7, 5)):
     """The resblock kernel at every (B, C, T) a path (``path``: the main
     path's or the bench's) launched it with, on inputs drawn on the card:
     agreement with the plain version (1e-4 x max|plain|), CUDA-event times
     of the kernel and the plain version, and the FP32 bound; and the time
     and error of each of ``extras`` (name -> the C entry of another build:
     ``baseline`` takes HF-layout weights and must agree, the others take
-    packed weights and their error is only reported). Returns the sums per
-    C, each shape weighted by its launch count."""
+    packed weights and their error is only reported). ``reps``: warm-ups,
+    then the kernel's and the plain version's timed runs, per shape.
+    Returns the sums per C, each shape weighted by its launch count."""
     from tokenize_audio_tpu_torch.config import ieee_fp32
     from tokenize_audio_tpu_torch.mimi import MimiConfig, random_params
     from tokenize_audio_tpu_torch.ops.cuda import seanet
@@ -4240,8 +4401,10 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path"):
             nbytes = 4.0 * (2 * b * c * t + 4 * c * c2 + c2 + c + b)
             b_ms, b_by = bound_ms(flops, nbytes, peak_flops, peak_bw)
             row = {"B": b, "C": c, "T": t, "count": count, "max_abs_err": err,
-                   "ms": cuda_ms(torch, lambda: seanet.resblock_elu(*args, packed=packed)),
-                   "plain_ms": cuda_ms(torch, lambda: seanet.resblock_elu_reference(*args), reps=5),
+                   "ms": cuda_ms(torch, lambda: seanet.resblock_elu(*args, packed=packed),
+                                 warmup=reps[0], reps=reps[1]),
+                   "plain_ms": cuda_ms(torch, lambda: seanet.resblock_elu_reference(*args),
+                                       warmup=reps[0], reps=reps[2]),
                    "bound_ms": b_ms, "bound_by": b_by}
             out = torch.empty_like(xt)
             for name, fn in extras.items():
@@ -4257,7 +4420,7 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path"):
                 if name == "baseline":
                     check(row[f"{name}_err"] <= 1e-4 * scale,
                           f"baseline {(b, c, t)}: max err {row[f'{name}_err']}")
-                row[f"{name}_ms"] = cuda_ms(torch, run_extra)
+                row[f"{name}_ms"] = cuda_ms(torch, run_extra, warmup=reps[0], reps=reps[1])
             rows.append(row)
             del got, want, out, xt, args
             torch.cuda.empty_cache()
@@ -4275,7 +4438,8 @@ def phase_replay(torch, shapes, peak_flops, peak_bw, extras, path="main_path"):
     total = {k: sum(p[k] for p in per_c.values())
              for k in per_c[min(per_c)] if k == "launches" or k.endswith("ms")}
     summary = {"per_C": per_c, "total": total, "max_abs_err": max(r["max_abs_err"] for r in rows),
-               "timing": "CUDA-event median of 7 after 2 warm-ups per shape, L2 not flushed",
+               "timing": f"CUDA-event median of {reps[1]} (plain: {reps[2]}) after {reps[0]} "
+                         f"warm-ups per shape, L2 not flushed",
                "seconds": time.perf_counter() - t0}
     emit({"phase": "replay", "path": path, **summary})
     return summary
@@ -4455,6 +4619,9 @@ def main(argv=None) -> int:
         scripts_launches, scripts_per_script, scripts_shapes, scripts_rvq_shapes, kmeans_heads = (
             timed("scripts", phase_scripts, torch))
         torch.cuda.empty_cache()
+        probes_launches, probes_per_script, probes_shapes, probes_rvq_shapes = timed(
+            "probes", phase_probes, torch)
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_downstream_") as tmp:
             downstream_launches, downstream_shapes, downstream_rvq_shapes = timed(
                 "downstream", phase_downstream, torch, tmp)
@@ -4473,6 +4640,8 @@ def main(argv=None) -> int:
             r["mesh_launches"] = mesh_launches[r["name"]]
             r["scripts_launches"] = {"total": scripts_launches[r["name"]],
                                      **{k: n[r["name"]] for k, n in scripts_per_script.items()}}
+            r["probes_launches"] = {"total": probes_launches[r["name"]],
+                                    **{k: n[r["name"]] for k, n in probes_per_script.items()}}
         t = time.perf_counter()
         rb = next(r for r in records if r["name"] == "resblock_elu")
         rb["main_path"] = phase_replay(torch, shapes, peak_flops, peak_bw, extras)
@@ -4490,6 +4659,10 @@ def main(argv=None) -> int:
                                        path="mesh_path")
         rb["scripts_path"] = phase_replay(torch, scripts_shapes, peak_flops, peak_bw, {},
                                           path="scripts_path")
+        # the probes launch well over a thousand shapes (the warmup
+        # receipt's tail ladders): fewer runs each keep the smoke in its limit
+        rb["probes_path"] = phase_replay(torch, probes_shapes, peak_flops, peak_bw, {},
+                                         path="probes_path", reps=(1, 3, 3))
         times["replay"] = time.perf_counter() - t
         t = time.perf_counter()
         rq = next(r for r in records if r["name"] == "rvq_quantize")
@@ -4500,7 +4673,8 @@ def main(argv=None) -> int:
                                  ("corpus_path", corpus_rvq_shapes, {}),
                                  ("qualify_path", qualify_rvq_shapes, {}),
                                  ("downstream_path", downstream_rvq_shapes, {}),
-                                 ("mesh_path", mesh_rvq_shapes, {})):
+                                 ("mesh_path", mesh_rvq_shapes, {}),
+                                 ("probes_path", probes_rvq_shapes, {})):
             rq[path] = phase_rvq_replay(torch, found, peak_flops, peak_bw, ext, path=path)["total"]
         # the scripts' RVQ launches replay on the k-means codebooks they trained
         rq["scripts_path"] = phase_rvq_replay(torch, scripts_rvq_shapes, peak_flops, peak_bw, {},

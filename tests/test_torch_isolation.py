@@ -17,7 +17,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPTS = ("", ".bf16_qualification", ".precision_probe", ".split_boundary_census",
            ".resampler_sensitivity", ".seanet_backend_probe", ".stream_policy_probe",
-           ".parity_census", ".parity_sweep", ".pipeline_bench")
+           ".parity_census", ".parity_sweep", ".pipeline_bench", ".probe_common",
+           ".drain_policy_probe", ".fetch_ahead_probe", ".fetch_dtype_probe",
+           ".fetch_pack_probe", ".growth_probe", ".pipeline_depth_probe",
+           ".samples_budget_probe", ".warmup_tails_receipt", ".conv_layout_probe")
 
 _PROBE = r"""
 import importlib, pkgutil, sys

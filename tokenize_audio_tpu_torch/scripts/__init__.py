@@ -18,6 +18,17 @@ stream_policy_probe    : the split and stream long-audio policies, speed and
 parity_census          : multi-seed engine vs HF census with flip margins
 parity_sweep           : engine vs HF over many utterances
 pipeline_bench         : ``benchmark --pipeline``
+probe_common           : the A/B probes' workload, warm check and
+                         interleaved rounds
+drain_policy_probe     : fifo vs ready vs threaded drains
+fetch_ahead_probe      : the YODAS2 processor at fetch_ahead 0 vs 1
+fetch_dtype_probe      : int32 vs uint16 codes to the host, raw and end to end
+fetch_pack_probe       : padded vs packed vs compact wire formats
+growth_probe           : bucket-lattice growth factors
+pipeline_depth_probe   : in-flight batches 12 vs 18 vs 24
+samples_budget_probe   : 128 vs 192 vs 288 s of audio per batch
+warmup_tails_receipt   : the provisioning warmup's batch shapes and wall
+conv_layout_probe      : encode stages, and NCL vs channels-last SEANet convs
 run_yodas2_pod.sh      : the YODAS2 shard launcher of a GPU host
 monitor.sh             : the progress dashboard
 

@@ -967,7 +967,7 @@ def run_yodas2_cli(torch, root, work, tag, captured, profiled=False, extra_args=
     def capture(*args, **kwargs):
         engine = orig(*args, **kwargs)
         torch.cuda.synchronize()
-        engine.stats = EngineStats()
+        engine.stats = EngineStats(started_at=time.perf_counter())
         captured[tag] = engine
         if prof is not None:
             prof.start()
@@ -2083,7 +2083,7 @@ def run_cli(torch, module, argv):
     def capture(*args, **kwargs):
         engine = orig(*args, **kwargs)
         torch.cuda.synchronize()
-        engine.stats = EngineStats()
+        engine.stats = EngineStats(started_at=time.perf_counter())
         built.append(engine)
         return engine
 

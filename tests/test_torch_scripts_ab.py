@@ -52,6 +52,11 @@ from tokenize_audio_tpu_torch.scripts import (
 
 MAX_SAMPLES = 4 * 24_000  # the cut workload's longest utterance
 NUMBER = re.compile(r"-?\d+(\.\d+)?(e[-+]?\d+)?")
+# stages the port's engine times inside its dispatch and fetch stages, which
+# the JAX engine does not have: left out where the stage tables are compared
+PORT_SUB_STAGES = {"dispatch.upload", "dispatch.launch", "fetch.wait"}
+SUB_STAGE_ENTRY = re.compile(
+    r""",? ?['"](?:%s)['"]: #""" % "|".join(map(re.escape, sorted(PORT_SUB_STAGES))))
 
 
 def cut_bench_audios(real):
@@ -108,11 +113,12 @@ def hub_codes(hub: Path) -> dict:
 
 
 def lines(out: str) -> list:
-    """Printed lines, each number masked and each run of spaces made one
-    (numbers pad to their width), without the device line (the JAX scripts
-    print a JAX device, the port its card or "cpu")."""
-    return [" ".join(NUMBER.sub("#", ln).split()) for ln in out.splitlines()
-            if not ln.startswith("device:")]
+    """Printed lines, each number masked, each port sub-stage's entry of a
+    printed stage table left out and each run of spaces made one (numbers
+    pad to their width), without the device line (the JAX scripts print a
+    JAX device, the port its card or "cpu")."""
+    return [" ".join(SUB_STAGE_ENTRY.sub("", NUMBER.sub("#", ln)).split())
+            for ln in out.splitlines() if not ln.startswith("device:")]
 
 
 def result_of(out: str) -> dict:
@@ -241,7 +247,9 @@ def test_warm_check_and_rounds_match_jax(capsys):
     assert_codes_equal([got], [want])
     assert lines(capsys.readouterr().out) == lines(want_out)
     assert all(len(r) == 1 and r[0] > 0 for r in results.values())
-    assert {f: set(s) for f, s in stages.items()} == {f: set(s) for f, s in jax_stages.items()}
+    assert {f: set(s) - PORT_SUB_STAGES for f, s in stages.items()} == {
+        f: set(s) for f, s in jax_stages.items()}
+    assert all(PORT_SUB_STAGES <= set(s) for s in stages.values())
 
 
 class _Fixed:

@@ -149,12 +149,16 @@ def add_engine_args(ap: argparse.ArgumentParser, batch_size: int = 16) -> None:
 
 
 def _start_profiler(trace_dir: str) -> None:
-    """Record a torch.profiler trace from now until the process exits."""
+    """Record a torch.profiler trace from now until the process exits. It
+    holds the program's ``tokenize_audio::`` ranges (``ranges.span``) on
+    the kernels' clock, from every thread: the processors' prefetch and
+    upload workers and the engine's deferred collects too."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(
         activities=activities,
+        experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True),
         on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir),
     )
     prof.start()

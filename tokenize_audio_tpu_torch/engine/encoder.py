@@ -38,7 +38,9 @@ all-gathers the codes, so every rank returns the full result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import logging
 import math
 import time
@@ -59,7 +61,7 @@ from tokenize_audio_tpu_torch.core.audio import (
     resample_many,
     split_long_audio_with_context,
 )
-from tokenize_audio_tpu_torch.engine.metrics import EngineStats
+from tokenize_audio_tpu_torch.engine.metrics import EngineStats, StreamTimeline
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.mimi.model import _check_modes, cast_for_compute
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
@@ -68,6 +70,7 @@ from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
 from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
 from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
 from tokenize_audio_tpu_torch.parallel.mesh import Mesh, batch_sharding
+from tokenize_audio_tpu_torch.ranges import span
 
 logger = logging.getLogger(__name__)
 
@@ -166,6 +169,8 @@ class MimiEncoderEngine:
         self.num_codebooks = num_codebooks or self.engine_cfg.num_codebooks
         self.masked = masked
         self.stats = EngineStats()
+        self._batch_ids = itertools.count()  # engine-wide device batch ids
+        self._timeline = StreamTimeline(self.device)  # stream_seconds, stream_idle_seconds
         self._bucket_cache: dict = {}
         self._stream_encoders: dict = {}  # stream batch size -> encoder
         self.buckets = self._buckets_for(
@@ -265,78 +270,100 @@ class MimiEncoderEngine:
         budget_len: Optional[int] = None,
     ):
         """Pad one device batch and launch its encode. Returns the in-flight
-        handle ``(host_codes, event, n_real, frames, bucket_frames)`` —
-        per-row frame counts are HOST-computed (no device valid fetch), and
-        ``host_codes``' layout depends on code_transfer_format.
+        handle ``(host_codes, event, n_real, frames, bucket_frames, batch_id)``
+        — per-row frame counts are HOST-computed (no device valid fetch),
+        ``host_codes``' layout depends on code_transfer_format, and
+        ``event`` is the batch's interval's closing mark on the engine's
+        ``StreamTimeline`` (None off CUDA).
         ``resample_arg`` = (up, down) for the fused on-device resample (rows
         are at the source rate); ``budget_len`` is the POST-resample length
         used for the activation-memory samples budget (defaults to bucket)."""
-        group = list(utterances)
-        n_real = len(group)
-        # tail-ladder batch size >= n_real (bounded set of batch shapes,
-        # minimal padded-row waste — see EngineConfig.batch_size_for_group)
-        bs = self.engine_cfg.batch_size_for_group(
-            budget_len if budget_len is not None else bucket,
-            n_real,
-            multiple_of=self._batch_multiple,
-        )
-        # pad rows match the group's dtype so an all-int16 group keeps the
-        # narrow-transfer fast path (pad_to_bucket falls back to f32 on mix)
-        pad_dtype = group[0].dtype if group else np.float32
-        group += [np.zeros(1, dtype=pad_dtype)] * (bs - n_real)
-        fmt = self.engine_cfg.code_transfer_format
-        with self.stats.stage("pad"):
-            batch, lengths = pad_to_bucket(group, bucket)
-        # per-row frame counts are host-derivable (the ceil-division chain
-        # through the conv strides equals one ceil by samples_per_frame, and
-        # the fused resample's valid update is the same ceil) — so no mode
-        # ever fetches the device `valid` array
-        spf = self.cfg.samples_per_frame
-        res_len = lengths.astype(np.int64)
-        if resample_arg is not None:
-            up, down = resample_arg
-            res_len = -((-res_len * up) // down)
-        frames = (-(-res_len // spf)).astype(np.int64)
-        with self.stats.stage("dispatch"):
-            rows = slice(None) if self._batch_sharding is None else self._batch_sharding.span(bs)
-            b = torch.from_numpy(batch[rows]).to(self.device)
-            v = torch.from_numpy(lengths[rows]).to(self.device)
-            codes, _ = mimi_encode(
-                self.params,
-                self.cfg,
-                b,
-                v,
-                num_quantizers=self.num_codebooks,
-                masked=self.masked,
-                code_dtype=self.engine_cfg.code_transfer_dtype,
-                resample=resample_arg,
-                transfer=fmt,
+        batch_id = next(self._batch_ids)
+        with span("engine.dispatch", batch_id):
+            group = list(utterances)
+            n_real = len(group)
+            # tail-ladder batch size >= n_real (bounded set of batch shapes,
+            # minimal padded-row waste — see EngineConfig.batch_size_for_group)
+            bs = self.engine_cfg.batch_size_for_group(
+                budget_len if budget_len is not None else bucket,
+                n_real,
+                multiple_of=self._batch_multiple,
             )
-            # frames per padded row = bucket / samples-per-frame in the
-            # I/O domain (source-rate when the fused resample is active)
-            io_spf = spf if resample_arg is None else spf * down // up
-            bucket_frames = bs * int(-(-bucket // io_spf))
-            if fmt == "compact":
-                # copy only the valid-frame prefix, padded UP to a 16-step
-                # lattice of the buffer size (<=1/16 overfetch)
-                total = int(frames.sum())
-                cap = codes.shape[0]
-                step = max(1, cap // 16)
-                codes = codes[: min(cap, -(-total // step) * step)]
-            if self._multiprocess:
-                codes = self._gather_rows(codes)
-            # queue the device->host copy now, behind the encode on the same
-            # stream: it starts the moment compute finishes, and _collect
-            # waits on the event instead of synchronizing the device
-            event = None
-            if self.device.type == "cuda":
-                host = torch.empty(codes.shape, dtype=codes.dtype, pin_memory=True)
-                host.copy_(codes, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-            else:
-                host = codes
-        return host, event, n_real, frames, bucket_frames
+            # pad rows match the group's dtype so an all-int16 group keeps the
+            # narrow-transfer fast path (pad_to_bucket falls back to f32 on mix)
+            pad_dtype = group[0].dtype if group else np.float32
+            group += [np.zeros(1, dtype=pad_dtype)] * (bs - n_real)
+            fmt = self.engine_cfg.code_transfer_format
+            with self.stats.stage("pad"):
+                batch, lengths = pad_to_bucket(group, bucket)
+            # per-row frame counts are host-derivable (the ceil-division chain
+            # through the conv strides equals one ceil by samples_per_frame, and
+            # the fused resample's valid update is the same ceil) — so no mode
+            # ever fetches the device `valid` array
+            spf = self.cfg.samples_per_frame
+            res_len = lengths.astype(np.int64)
+            if resample_arg is not None:
+                up, down = resample_arg
+                res_len = -((-res_len * up) // down)
+            frames = (-(-res_len // spf)).astype(np.int64)
+            with self.stats.stage("dispatch"):
+                rows = slice(None) if self._batch_sharding is None else self._batch_sharding.span(bs)
+                self._timeline.open()
+                try:
+                    with self.stats.stage("dispatch.upload"):
+                        b = torch.from_numpy(batch[rows]).to(self.device)
+                        v = torch.from_numpy(lengths[rows]).to(self.device)
+                    with self.stats.stage("dispatch.launch"):
+                        codes, _ = mimi_encode(
+                            self.params,
+                            self.cfg,
+                            b,
+                            v,
+                            num_quantizers=self.num_codebooks,
+                            masked=self.masked,
+                            code_dtype=self.engine_cfg.code_transfer_dtype,
+                            resample=resample_arg,
+                            transfer=fmt,
+                        )
+                    with self.stats._lock:
+                        self.stats.batches += 1
+                    # frames per padded row = bucket / samples-per-frame in the
+                    # I/O domain (source-rate when the fused resample is active)
+                    io_spf = spf if resample_arg is None else spf * down // up
+                    bucket_frames = bs * int(-(-bucket // io_spf))
+                    if fmt == "compact":
+                        # copy only the valid-frame prefix, padded UP to a 16-step
+                        # lattice of the buffer size (<=1/16 overfetch)
+                        total = int(frames.sum())
+                        cap = codes.shape[0]
+                        step = max(1, cap // 16)
+                        codes = codes[: min(cap, -(-total // step) * step)]
+                    if self._multiprocess:
+                        codes = self._gather_rows(codes)
+                    # queue the device->host copy now, behind the encode on the same
+                    # stream: it starts the moment compute finishes, and _collect
+                    # waits on the event instead of synchronizing the device
+                    if self.device.type == "cuda":
+                        host = torch.empty(codes.shape, dtype=codes.dtype, pin_memory=True)
+                        host.copy_(codes, non_blocking=True)
+                    else:
+                        host = codes
+                finally:
+                    done = self._timeline.close()
+                event = done if self.device.type == "cuda" else None
+        return host, event, n_real, frames, bucket_frames, batch_id
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Put device work the engine queues outside ``_dispatch`` and
+        waits for (a resample, a streaming group) on its timeline as an
+        interval, as a batch is, so the stream's idle stays true idle."""
+        self._timeline.open()
+        try:
+            yield
+        finally:
+            self._timeline.close()
+            self._timeline.read(self.stats)
 
     def _gather_rows(self, codes: torch.Tensor) -> torch.Tensor:
         """The whole batch's codes from every data block's rows: an
@@ -390,13 +417,25 @@ class MimiEncoderEngine:
 
     def _collect(self, handle) -> List[np.ndarray]:
         """Wait for an in-flight batch and trim per-row codes."""
-        host, event, n_real, frames, bucket_frames = handle
+        host, event, n_real, frames, bucket_frames, batch_id = handle
+        with span("engine.collect", batch_id):
+            with self.stats.stage("fetch"):
+                with self.stats.stage("fetch.wait"):
+                    if event is not None:
+                        event.synchronize()
+                codes = host.numpy()
+            out, n_frames = self._trim(codes, n_real, frames)
+        self._timeline.read(self.stats)
+        with self.stats._lock:
+            self.stats.frames += n_frames
+            self.stats.padded_frames += bucket_frames
+        return out
+
+    def _trim(self, codes: np.ndarray, n_real: int, frames) -> "tuple[List[np.ndarray], int]":
+        """Each real row's (K, frames) codes from a batch's host buffer in
+        the transfer format, and the frames they hold."""
         fmt = self.engine_cfg.code_transfer_format
         dtype = np.dtype(self.engine_cfg.code_transfer_dtype)
-        with self.stats.stage("fetch"):
-            if event is not None:
-                event.synchronize()
-            codes = host.numpy()
         out = []
         n_frames = 0
         if fmt == "padded":
@@ -425,10 +464,7 @@ class MimiEncoderEngine:
                 out.append(u16[off : off + f].T.astype(dtype))
                 n_frames += f
                 off += f
-        with self.stats._lock:
-            self.stats.frames += n_frames
-            self.stats.padded_frames += bucket_frames
-        return out
+        return out, n_frames
 
     def _prepare_mono(self, audio: np.ndarray) -> np.ndarray:
         """Mixdown/flatten only — no resample, int16 preserved (non-24 kHz
@@ -449,7 +485,7 @@ class MimiEncoderEngine:
         audio = self._prepare_mono(audio)
         if sr != self.engine_cfg.sample_rate:
             audio = pcm_to_float(audio)
-            with self.stats.stage("resample"):
+            with self.stats.stage("resample"), self._on_stream():
                 audio = (
                     resample(audio, sr, self.engine_cfg.sample_rate, device=self.device)
                     .cpu()
@@ -516,6 +552,7 @@ class MimiEncoderEngine:
                 )
             if pa["on_complete"] is not None:
                 pa["on_complete"]()
+        self.stats.start_clock()
         rate = self.engine_cfg.sample_rate
         resample_arg, spf_io, domain_sr = self._resample_plan(sr)
         if resample_arg is not None:
@@ -529,7 +566,7 @@ class MimiEncoderEngine:
             # non-integer source frame (exotic rate) or unmasked HF
             # semantics: batched device resample, then the 24 kHz path
             raw = [self._prepare_mono(a) for a in audios]
-            with self.stats.stage("resample"):
+            with self.stats.stage("resample"), self._on_stream():
                 prepared = resample_many(raw, sr, rate, device=self.device)
         else:
             prepared = [self._prepare(a, sr) for a in audios]
@@ -548,7 +585,7 @@ class MimiEncoderEngine:
                 if domain_sr != rate:
                     # the streaming encoder consumes 24 kHz audio: resample
                     # this utterance as the unfused path does
-                    with self.stats.stage("resample"):
+                    with self.stats.stage("resample"), self._on_stream():
                         a = resample(pcm_to_float(a), domain_sr, rate, device=self.device)
                         a = a.cpu().numpy()
                 # the streaming encoder consumes float audio (push() casts
@@ -659,7 +696,7 @@ class MimiEncoderEngine:
             for s in range(0, len(stream_jobs), self.engine_cfg.stream_batch):
                 grp = stream_jobs[s : s + self.engine_cfg.stream_batch]
                 enc = self._stream_encoder_for(len(grp))
-                with self.stats.stage("stream"):
+                with self.stats.stage("stream"), self._on_stream():
                     # retry is exact: encode_streams resets carried state at
                     # entry, so the whole group re-streams from scratch
                     codes_list = self._retry_transient(

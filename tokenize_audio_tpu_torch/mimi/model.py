@@ -39,6 +39,7 @@ from tokenize_audio_tpu_torch.config import fp32_precision, ieee_fp32
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.ops.cuda import rvq as rvq_ops
 from tokenize_audio_tpu_torch.ops.cuda import seanet as seanet_ops
+from tokenize_audio_tpu_torch.ranges import span
 
 Params = Dict[str, Any]
 _BACKENDS = ("kernel", "torch")
@@ -462,6 +463,11 @@ def encode(
     ``group`` is the model group of a tensor-parallel mesh, for params from
     ``parallel.mesh.shard_params_tp`` (see ``transformer_apply``); None
     runs the whole transformer on this device.
+
+    While a profiler records, each stage runs in a ``tokenize_audio::mimi.*``
+    range (``ranges.span``): ``resample`` (the fused one), ``seanet_encode``,
+    ``transformer``, ``downsample``, ``split_rvq`` and ``pack`` (the
+    transfer layout).
     """
     _check_modes(cfg)
     with fp32_precision(matmul_precision(cfg)):
@@ -499,30 +505,40 @@ def _encode(
         from tokenize_audio_tpu_torch.core.audio import _resample_batch
 
         up, down = resample
-        audio = _resample_batch(audio.to(torch.float32), up, down)
+        with span("mimi.resample"):
+            audio = _resample_batch(audio.to(torch.float32), up, down)
         valid = (valid * up + down - 1) // down  # ceil(valid * up / down)
     x = audio[:, None, :].to(dt)
     valid_in = valid
     if not masked:
         valid = None
-    x, valid = seanet_encode(params, cfg, x, valid)
-    h = transformer_apply(params["tfm"], cfg, x.transpose(1, 2), group=group)
-    x = h.transpose(1, 2)
-    if valid is not None:
-        pos = _positions(x.shape[-1], x.device)[None, None, :]
-        x = torch.where(pos < valid[:, None, None], x, 0.0)
-    x, valid = causal_conv1d(
-        x, valid, params["downsample"]["w"], None, stride=2, pad_mode="replicate"
-    )
-    codes = split_rvq_encode(
-        params["rvq"], x.to(torch.float32), num_quantizers, backend=cfg.rvq_backend
-    )
+    with span("mimi.seanet_encode"):
+        x, valid = seanet_encode(params, cfg, x, valid)
+    with span("mimi.transformer"):
+        h = transformer_apply(params["tfm"], cfg, x.transpose(1, 2), group=group)
+    with span("mimi.downsample"):
+        x = h.transpose(1, 2)
+        if valid is not None:
+            pos = _positions(x.shape[-1], x.device)[None, None, :]
+            x = torch.where(pos < valid[:, None, None], x, 0.0)
+        x, valid = causal_conv1d(
+            x, valid, params["downsample"]["w"], None, stride=2, pad_mode="replicate"
+        )
+        x = x.to(torch.float32)
+    with span("mimi.split_rvq"):
+        codes = split_rvq_encode(params["rvq"], x, num_quantizers, backend=cfg.rvq_backend)
     if valid is None and valid_in is not None:
         # unmasked (HF batch semantics) still reports per-row frame counts
         spf = cfg.samples_per_frame
         valid = (valid_in + spf - 1) // spf
+    with span("mimi.pack"):
+        return _transfer_layout(codes, valid, num_quantizers, code_dtype, transfer), valid
+
+
+def _transfer_layout(codes, valid, num_quantizers, code_dtype, transfer):
+    """The (B, K, T) codes in ``encode``'s ``transfer`` wire format."""
     if transfer == "padded":
-        return codes.to(getattr(torch, code_dtype)), valid
+        return codes.to(getattr(torch, code_dtype))
     if num_quantizers % 2 != 0:
         raise ValueError(f"packed transfer needs even num_quantizers, got {num_quantizers}")
     # pack adjacent code pairs little-endian into int32 words: the host
@@ -530,7 +546,7 @@ def _encode(
     ct = codes.transpose(1, 2).to(torch.int32)  # (B, T, K)
     packed = ct[..., 0::2] | (ct[..., 1::2] << 16)  # (B, T, K//2)
     if transfer == "packed":
-        return packed, valid
+        return packed
     if transfer != "compact":
         raise ValueError(f"unknown transfer mode {transfer!r}")
     if valid is None:
@@ -544,4 +560,4 @@ def _encode(
     tgt = torch.where(fmask, torch.cumsum(fmask.long(), 0) - 1, b * t)
     out = torch.zeros((b * t + 1, kp), dtype=torch.int32, device=packed.device)
     out.index_copy_(0, tgt, packed.reshape(b * t, kp))
-    return out[: b * t], valid
+    return out[: b * t]

@@ -462,7 +462,9 @@ def test_parity_and_tf32_engines_at_once_on_card(cuda):
     the card: the parity codes equal a parity-only run, and each thread's
     TF32 flags at every conv1d / linear / matmul launch are its mode's at
     that site (the resample, in_proj and the fused stage's down-conv IEEE in
-    both)."""
+    both). Each engine meets its batch shapes first in its thread: a shape
+    seen before would replay its transformer from a CUDA graph, with no
+    launch of its own to check."""
     import sys
     import threading
 
@@ -483,9 +485,10 @@ def test_parity_and_tf32_engines_at_once_on_card(cuda):
     rng = np.random.default_rng(22)
     audios = [(rng.standard_normal(n) * 8000).astype(np.int16) for n in (5000, 19_200, 30_000)]
     audios16 = [(rng.standard_normal(n) * 8000).astype(np.int16) for n in (9000, 20_000)]
+    alone = MimiEncoderEngine(params, TINY, ecfg)
+    want = alone.encode_batch(audios) + alone.encode_batch(audios16, sr=16_000)
     parity = MimiEncoderEngine(params, TINY, ecfg)
     fast = MimiEncoderEngine(params, dataclasses.replace(TINY, matmul_precision="high"), ecfg)
-    want = parity.encode_batch(audios) + parity.encode_batch(audios16, sr=16_000)
     calls, real = [], {}
     for mod, name in ((F, "conv1d"), (F, "linear"), (torch, "matmul")):
         real[name] = fn = getattr(mod, name)
@@ -520,6 +523,8 @@ def test_parity_and_tf32_engines_at_once_on_card(cuda):
         assert cudnn == matmul == on, (thread, where, cudnn, matmul)
         seen.add((thread, where))
     assert seen == {(t, s) for t in ("parity", "tf32") for s in ieee + tf32}, seen
+    # the second and third rounds replayed the first's graphs
+    assert parity.stats.transformer_graph_replays > 0 and fast.stats.transformer_graph_replays > 0
 
 
 @pytest.mark.parametrize("policy", ["ready", "threaded"])

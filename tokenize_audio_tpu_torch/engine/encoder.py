@@ -17,7 +17,10 @@ Differences from the reference:
   - up to ``pipeline_depth`` batches in flight: each batch launches on the
     current CUDA stream and its codes are copied to pinned host memory
     with ``non_blocking=True`` behind a recorded event, so padding the next
-    batch overlaps the device work of the previous ones.
+    batch overlaps the device work of the previous ones;
+  - on CUDA the transformer stack of each batch shape is captured as a
+    CUDA graph at its first batch and replayed as one launch from its
+    second (``mimi/graphs.py``), the same ops on the same numbers.
 
 With ``long_audio_policy="stream"``, utterances over the cap are encoded
 exactly by the streaming encoder (``mimi/streaming.py``), up to
@@ -44,6 +47,7 @@ import itertools
 import logging
 import math
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
 
@@ -63,6 +67,7 @@ from tokenize_audio_tpu_torch.core.audio import (
 )
 from tokenize_audio_tpu_torch.engine.metrics import EngineStats, StreamTimeline
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
+from tokenize_audio_tpu_torch.mimi.graphs import TransformerGraphs
 from tokenize_audio_tpu_torch.mimi.model import _check_modes, cast_for_compute
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
 from tokenize_audio_tpu_torch.mimi.streaming import StreamingMimiEncoder
@@ -244,8 +249,27 @@ class MimiEncoderEngine:
         # encoders always run float32 and take the uncast tree
         self._stream_params = params
         self.params = cast_for_compute(params, self.cfg)
+        self._graphs = self._new_graphs()
 
     # -- internals ---------------------------------------------------------
+
+    def _new_graphs(self) -> Optional[TransformerGraphs]:
+        """A cache of the transformer stack's CUDA graphs over the engine's
+        params, which stay put for its lifetime; None off CUDA."""
+        if self.device.type != "cuda":
+            return None
+        # weakly: the engine owns the cache, and a strong reference back
+        # would keep a dropped engine, its params and its graphs' memory
+        # alive until the cycle collector runs
+        count = weakref.WeakMethod(self._count_graph)
+        return TransformerGraphs(self.device, on_event=lambda kind: count()(kind))
+
+    def _count_graph(self, kind: str) -> None:
+        with self.stats._lock:
+            if kind == "capture":
+                self.stats.transformer_graph_captures += 1
+            else:
+                self.stats.transformer_graph_replays += 1
 
     def _buckets_for(self, domain_sr: int, spf_io: int):
         """Bucket lattice in ``domain_sr``-samples (the fused-resample path
@@ -324,6 +348,7 @@ class MimiEncoderEngine:
                             code_dtype=self.engine_cfg.code_transfer_dtype,
                             resample=resample_arg,
                             transfer=fmt,
+                            graphs=self._graphs,
                         )
                     with self.stats._lock:
                         self.stats.batches += 1
@@ -408,6 +433,10 @@ class MimiEncoderEngine:
         try:
             return attempt()
         except _TRANSIENT as e:
+            # the fault may have struck inside a capture or replay: start
+            # the graphs afresh, before an out-of-memory recovery releases
+            # the allocator's cache, so their pool goes with it
+            self._graphs = self._new_graphs()
             if self._multiprocess or not self._device_recovers(e):
                 raise
             logger.warning("transient device fault %s; retrying once: %s", what, e)

@@ -43,6 +43,10 @@ class EngineStats:
     batches: int = 0  # device batches launched, a retry's re-dispatch too
     stream_seconds: float = 0.0  # time the stream held some interval's work
     stream_idle_seconds: float = 0.0  # time it held none (StreamTimeline)
+    # batches whose transformer stack was captured as a CUDA graph, and
+    # replayed from one (mimi/graphs.py); both 0 where no graph runs
+    transformer_graph_captures: int = 0
+    transformer_graph_replays: int = 0
     stage_seconds: Dict[str, float] = dataclasses.field(
         default_factory=lambda: defaultdict(float)
     )
@@ -100,6 +104,8 @@ class EngineStats:
             "batches": self.batches,
             "stream_seconds": round(self.stream_seconds, 3),
             "stream_idle_seconds": round(self.stream_idle_seconds, 3),
+            "transformer_graph_captures": self.transformer_graph_captures,
+            "transformer_graph_replays": self.transformer_graph_replays,
             **{f"stage_{k}": round(v, 3) for k, v in self.stage_seconds.items()},
         }
 

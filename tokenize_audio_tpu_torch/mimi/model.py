@@ -293,7 +293,7 @@ def _attention_mask(cfg: MimiConfig, t: int, device: torch.device) -> torch.Tens
 
 
 def transformer_apply(
-    params: Params, cfg: MimiConfig, h: torch.Tensor, group=None
+    params: Params, cfg: MimiConfig, h: torch.Tensor, group=None, graphs=None
 ) -> torch.Tensor:
     """(B, T, C) -> (B, T, C). Mirrors MimiTransformerModel with eager
     attention (modeling_mimi.py:608-703, 922-994): pre-LN, RoPE, fp32
@@ -305,7 +305,18 @@ def transformer_apply(
     heads and MLP block, and the outputs of the row-parallel ``o`` and
     ``fc2`` are summed over the group (in the compute dtype) before their
     LayerScale residual, where XLA puts the psum under the JAX package's
-    sharding."""
+    sharding.
+
+    ``graphs``, a ``graphs.TransformerGraphs`` of a caller whose params
+    stay put, replays the stack from a CUDA graph per input shape where it
+    engages (on its CUDA device, without ``group``, with no gradient); the
+    body is the same either way."""
+    if graphs is not None and graphs.engages(h, group):
+        return graphs(lambda x: _transformer_stack(params, cfg, x, None), h)
+    return _transformer_stack(params, cfg, h, group)
+
+
+def _transformer_stack(params: Params, cfg: MimiConfig, h: torch.Tensor, group) -> torch.Tensor:
     b, t, _ = h.shape
     hd = cfg.head_dim
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -432,6 +443,7 @@ def encode(
     resample: Optional[Tuple[int, int]] = None,
     transfer: str = "padded",
     group=None,
+    graphs=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Encode (B, T) float32 or int16 audio -> (codes, frame valid), on the
     device the audio and params lie on.
@@ -462,7 +474,9 @@ def encode(
 
     ``group`` is the model group of a tensor-parallel mesh, for params from
     ``parallel.mesh.shard_params_tp`` (see ``transformer_apply``); None
-    runs the whole transformer on this device.
+    runs the whole transformer on this device. ``graphs`` (a
+    ``graphs.TransformerGraphs``) replays the transformer stack from a
+    CUDA graph per batch shape (``transformer_apply``).
 
     While a profiler records, each stage runs in a ``tokenize_audio::mimi.*``
     range (``ranges.span``): ``resample`` (the fused one), ``seanet_encode``,
@@ -473,12 +487,13 @@ def encode(
     with fp32_precision(matmul_precision(cfg)):
         return _encode(
             params, cfg, audio, valid, num_quantizers, masked, code_dtype,
-            resample, transfer, group,
+            resample, transfer, group, graphs,
         )
 
 
 def _encode(
-    params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer, group
+    params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer, group,
+    graphs,
 ):
     dt = compute_dtype(cfg)
     params = cast_for_compute(params, cfg)
@@ -515,7 +530,8 @@ def _encode(
     with span("mimi.seanet_encode"):
         x, valid = seanet_encode(params, cfg, x, valid)
     with span("mimi.transformer"):
-        h = transformer_apply(params["tfm"], cfg, x.transpose(1, 2), group=group)
+        h = transformer_apply(params["tfm"], cfg, x.transpose(1, 2), group=group,
+                              graphs=graphs)
     with span("mimi.downsample"):
         x = h.transpose(1, 2)
         if valid is not None:

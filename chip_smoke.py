@@ -17,7 +17,9 @@ the run (non-zero exit, no final result line) if its check fails:
                 shapes: agreement, CUDA-event times, and the bound the card's
                 FP32 rate and memory rate set for the same work; the RVQ
                 line also gives how many clusters of each of its variants
-                the card holds at once;
+                the card holds at once, and the same check at EnCodec
+                24 kHz's shapes (D 128, V 1024, K 8; its ``encodec``
+                entry);
   4. main     — MimiEncoderEngine at full kyutai/mimi width (random weights,
                 seed 0), 32 codebooks, packed transfer, fifo drain, on a
                 YODAS2-shaped sub-shard through encode_batch(defer=True) and
@@ -299,6 +301,9 @@ SPF = 1920
 SR = 24_000
 RVQ_SHAPE = dict(n=4096, d=256, v=2048, k=32)
 RVQ_SMALL_N = 267  # mean rows per main-path batch
+# EnCodec 24 kHz at 6 kbps: 8 books of 1024 x 128; rows (batch rows x
+# padded frames) of engine-web.encodec-8cb's largest and mean batch
+ENCODEC_RVQ = dict(n=(13_960, 7_075), d=128, v=1024, k=8)
 RESBLOCK_BATCH, RESBLOCK_SECONDS = 16, 10.0
 AB_PAIRS = 6
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clocks: longer than any fn's host-side enqueue
@@ -420,6 +425,37 @@ def time_rvq_extras(torch, row, extras, x, embeds, packed, want, what):
         row[f"{name}_ms"] = cuda_ms(torch, run)
 
 
+def rvq_encodec_shapes(torch, rng, peak_flops, peak_bw) -> list:
+    """The RVQ kernel at EnCodec's shapes (``ENCODEC_RVQ``), each N against
+    the plain version on the same inputs (``rvq_agreement``), both timed,
+    with the shape's bound."""
+    from tokenize_audio_tpu_torch.ops.cuda import rvq
+
+    dev = torch.device("cuda")
+    d, v, k = (ENCODEC_RVQ[s] for s in ("d", "v", "k"))
+    embeds = torch.from_numpy(rng.standard_normal((k, v, d)).astype(np.float32)).to(dev)
+    packed = rvq.pack_codebooks(embeds)  # once, as the engine does
+    rows = []
+    for n in ENCODEC_RVQ["n"]:
+        x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        got = rvq.rvq_quantize(x, embeds, packed=packed)
+        want = rvq.rvq_quantize_reference(x, embeds)
+        torch.cuda.synchronize()
+        match, n_rows, max_margin, gap = rvq_agreement(
+            x, embeds, got, want, f"rvq kernel, EnCodec N={n}")
+        b_ms, b_by = bound_ms(2.0 * k * n * v * d, 4.0 * (k * v * d + n * d + n * k),
+                              peak_flops, peak_bw)
+        rows.append({
+            "N": n, "D": d, "V": v, "K": k,
+            "ms": cuda_ms(torch, lambda: rvq.rvq_quantize(x, embeds, packed=packed)),
+            "plain_ms": cuda_ms(torch, lambda: rvq.rvq_quantize_reference(x, embeds)),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": gap,
+            "code_match": match, "diverging_rows": n_rows, "max_rel_margin": max_margin,
+        })
+        emit({"phase": "kernel_stage", "name": "rvq_quantize", "model": "encodec", **rows[-1]})
+    return rows
+
+
 def rvq_max_active_clusters():
     """How many clusters of each RVQ kernel variant the card holds at once
     (D = 256), by cudaOccupancyMaxActiveClusters."""
@@ -515,6 +551,7 @@ def phase_kernels(torch, peak_flops, peak_bw, rvq_extras):
             "max_rel_margin": max_margin,
             **others,
             "small_batch": small,
+            "encodec": rvq_encodec_shapes(torch, rng, peak_flops, peak_bw),
             "max_active_clusters_per_variant": rvq_max_active_clusters(),
         })
         del packed, packed_ac

@@ -1,4 +1,4 @@
-"""PyTorch port, the transformer stack's CUDA graphs (``mimi/graphs.py``):
+"""PyTorch port, the transformer stack's CUDA graphs (``graphs.py``):
 off the card a cache changes nothing; the cache's policy (eager and then
 captured at a key's first sight, replayed from its second, one key per
 shape, dtype and matmul precision; never under a tensor-parallel group or
@@ -24,7 +24,7 @@ from tokenize_audio_tpu_torch.core.audio import bucket_for_length
 from tokenize_audio_tpu_torch.engine import EngineStats, MimiEncoderEngine
 from tokenize_audio_tpu_torch.engine import encoder as enc_mod
 from tokenize_audio_tpu_torch.mimi import MimiConfig, params_to_torch, random_params
-from tokenize_audio_tpu_torch.mimi.graphs import TransformerGraphs
+from tokenize_audio_tpu_torch.graphs import GraphCache
 from tokenize_audio_tpu_torch.mimi.model import transformer_apply
 
 TINY = MimiConfig(
@@ -88,7 +88,7 @@ def counting(events):
 @pytest.mark.parametrize("device", ["cpu", "cuda:0"])
 def test_a_cache_off_the_card_changes_nothing(tfm, device):
     events = []
-    graphs = TransformerGraphs(device, on_event=counting(events))
+    graphs = GraphCache(device, on_event=counting(events))
     for seed in (0, 1, 1):
         h = hidden(2, 9, seed)
         want = transformer_apply(tfm, TINY, h)
@@ -99,7 +99,7 @@ def test_a_cache_off_the_card_changes_nothing(tfm, device):
 
 def test_eager_and_captured_at_first_sight_replayed_after(tfm):
     events, capture = [], StandIn()
-    graphs = TransformerGraphs("cpu", on_event=counting(events), capture=capture)
+    graphs = GraphCache("cpu", on_event=counting(events), capture=capture)
     h0, h1 = hidden(2, 9, 0), hidden(2, 9, 1)
     first = transformer_apply(tfm, TINY, h0, graphs=graphs)
     assert events == ["capture"] and capture.captured == [((2, 9, 32), torch.float32)]
@@ -115,7 +115,7 @@ def test_eager_and_captured_at_first_sight_replayed_after(tfm):
 
 def test_every_shape_dtype_and_precision_is_its_own_key():
     events, capture = [], StandIn()
-    graphs = TransformerGraphs("cpu", on_event=counting(events), capture=capture)
+    graphs = GraphCache("cpu", on_event=counting(events), capture=capture)
     body = lambda x: x * 2.0 + 1.0  # noqa: E731
     keys = [hidden(2, 9), hidden(3, 9), hidden(2, 10), hidden(2, 9, dtype=torch.bfloat16)]
     for h in keys:
@@ -132,7 +132,7 @@ def test_every_shape_dtype_and_precision_is_its_own_key():
 
 def test_a_group_or_a_gradient_is_always_eager(tfm):
     events, capture = [], StandIn()
-    graphs = TransformerGraphs("cpu", on_event=counting(events), capture=capture)
+    graphs = GraphCache("cpu", on_event=counting(events), capture=capture)
     h = hidden(2, 9)
     assert graphs.engages(h, None)
     assert not graphs.engages(h, object())  # a mesh's model group sums inside
@@ -203,7 +203,7 @@ def test_engine_passes_its_cache_and_counts_what_it_did(params):
     eng = MimiEncoderEngine(params, TINY, EngineConfig(**KW), num_codebooks=4,
                             pipeline_depth=3, device="cpu")
     capture = StandIn()
-    eng._graphs = TransformerGraphs("cpu", on_event=eng._count_graph, capture=capture)
+    eng._graphs = GraphCache("cpu", on_event=eng._count_graph, capture=capture)
     batches, shapes = plan_shapes(eng, LENGTHS)
     for call in range(2):
         eng.stats = EngineStats()
@@ -219,7 +219,7 @@ def test_engine_passes_its_cache_and_counts_what_it_did(params):
 
 def test_a_transient_fault_starts_the_graphs_afresh(params, monkeypatch):
     eng = MimiEncoderEngine(params, TINY, EngineConfig(**KW), num_codebooks=4, device="cpu")
-    old = eng._graphs = TransformerGraphs("cpu", capture=StandIn())
+    old = eng._graphs = GraphCache("cpu", capture=StandIn())
     real, fails = enc_mod.mimi_encode, {"n": 1}
 
     def flaky(*a, **k):

@@ -12,6 +12,8 @@ core      : audio DSP (resample/frame/normalize, length buckets), the
             code <-> unicode converter
 mimi      : the PyTorch Mimi encoder (one-shot and streaming) and decoder,
             weight conversion from HF checkpoints
+encodec   : the PyTorch EnCodec 24 kHz encoder (batch encode on the engine),
+            weight conversion from HF checkpoints
 ops       : hand-written CUDA kernels and their plain PyTorch versions
 engine    : length-bucketed batch encoding engine with throughput metrics
 parallel  : the (data, model) mesh of torch.distributed ranks, tensor-parallel

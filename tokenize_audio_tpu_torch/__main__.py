@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from tokenize_audio_tpu_torch.codec import MimiCodec
@@ -27,7 +28,11 @@ def main(argv=None):
     device_help = "torch device (default: the CUDA device; 'cpu' runs on the CPU)"
     enc = sub.add_parser("encode", help="audio file -> unicode code string")
     enc.add_argument("inputs", nargs="+")
-    enc.add_argument("--params", default=None, help="mimi safetensors checkpoint")
+    enc.add_argument(
+        "--params", default=None,
+        help="mimi safetensors checkpoint, or a HF snapshot directory of kyutai/mimi or "
+        "facebook/encodec_24khz (encode only)",
+    )
     enc.add_argument("-o", "--output", default=None, help="write codes here (default stdout)")
     enc.add_argument("--num-codebooks", type=int, default=8)
     enc.add_argument("--device", default=None, help=device_help)
@@ -60,13 +65,18 @@ def main(argv=None):
             )
         return 0
 
-    cfg = MimiConfig()
-    if args.params:
-        params = params_from_safetensors(args.params, cfg)
+    if args.params and os.path.isdir(args.params):
+        codec = MimiCodec.from_hf_dir(
+            args.params, num_codebooks=args.num_codebooks, device=args.device
+        )
     else:
-        print("warning: no --params; using seeded random weights", file=sys.stderr)
-        params = random_params(cfg)
-    codec = MimiCodec(params, cfg, num_codebooks=args.num_codebooks, device=args.device)
+        cfg = MimiConfig()
+        if args.params:
+            params = params_from_safetensors(args.params, cfg)
+        else:
+            print("warning: no --params; using seeded random weights", file=sys.stderr)
+            params = random_params(cfg)
+        codec = MimiCodec(params, cfg, num_codebooks=args.num_codebooks, device=args.device)
 
     if args.cmd == "encode":
         lines = []

@@ -5,10 +5,12 @@ from __future__ import annotations
 import argparse
 import atexit
 import logging
+import os
 from typing import Optional
 
 import torch
 
+from tokenize_audio_tpu_torch.codec import read_hf_snapshot
 from tokenize_audio_tpu_torch.config import EngineConfig
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
@@ -35,7 +37,13 @@ def _depth_arg(v: str):
 
 
 def add_engine_args(ap: argparse.ArgumentParser, batch_size: int = 16) -> None:
-    ap.add_argument("--params", default=None, help="mimi safetensors checkpoint")
+    ap.add_argument(
+        "--params",
+        default=None,
+        help="mimi safetensors checkpoint, or a HF snapshot directory "
+        "(config.json + model.safetensors) of kyutai/mimi or "
+        "facebook/encodec_24khz, by its model_type",
+    )
     ap.add_argument(
         "--device",
         default=None,
@@ -169,14 +177,20 @@ def engine_from_args(
     args, num_codebooks: Optional[int] = None, **engine_overrides
 ) -> MimiEncoderEngine:
     """Build the encode engine from the shared flags, on ``--device`` (the
-    CUDA device unless the caller asks for another)."""
-    cfg = MimiConfig(
+    CUDA device unless the caller asks for another). A snapshot directory
+    as ``--params`` gives the model its ``config.json`` names; the engine
+    refuses a mode that model does not run (EnCodec: bfloat16, TF32, the
+    streaming policy)."""
+    modes = dict(
         compute_dtype="bfloat16" if getattr(args, "fast", False) else "float32",
         matmul_precision=getattr(args, "precision", "highest"),
         rvq_backend=getattr(args, "rvq_backend", "kernel"),
         seanet_backend=getattr(args, "seanet_backend", "kernel"),
     )
-    if args.params:
+    cfg = MimiConfig(**modes)
+    if args.params and os.path.isdir(args.params):
+        params, cfg = read_hf_snapshot(args.params, **modes)
+    elif args.params:
         params = params_from_safetensors(args.params, cfg)
     else:
         logger.warning("no --params given; using seeded random weights")

@@ -5,7 +5,10 @@ utils helpers (librispeech-mimi/utils.py:58-87) over the port's engine.
     s = codec.audio_to_str(audio, sr=16_000)   # resample+encode+unicode
     wav = codec.str_to_audio(s)                # unicode -> codes -> audio
 
-Runs on the CUDA device unless the caller passes ``device="cpu"``.
+Runs on the CUDA device unless the caller passes ``device="cpu"``. A
+snapshot of ``facebook/encodec_24khz`` (``model_type`` "encodec" in its
+``config.json``) loads too, and encodes through the same engine; EnCodec's
+decoder is not ported, so its codes do not decode here.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 
 from tokenize_audio_tpu_torch.config import NUM_CODEBOOKS, UNICODE_OFFSET_LARGE, EngineConfig
 from tokenize_audio_tpu_torch.core.codes import chars_to_codes, codes_to_chars
+from tokenize_audio_tpu_torch.encodec import weights as encodec_weights
+from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.mimi.decoder import decode as mimi_decode
@@ -32,7 +37,7 @@ class MimiCodec:
     def __init__(
         self,
         params,
-        cfg: Optional[MimiConfig] = None,
+        cfg: Optional[MimiConfig | EncodecConfig] = None,
         engine_cfg: Optional[EngineConfig] = None,
         num_codebooks: int = NUM_CODEBOOKS,
         unicode_offset: int = UNICODE_OFFSET_LARGE,
@@ -64,10 +69,9 @@ class MimiCodec:
         model.safetensors) — the offline equivalent of the reference's
         ``MimiModel.from_pretrained("kyutai/mimi")``
         (yodas2-mimi/process_shard.py:188-195), honoring any non-default
-        checkpoint configuration."""
-        with open(os.path.join(snapshot_dir, "config.json")) as f:
-            cfg = _config_from_json(json.load(f))
-        params = params_from_safetensors(os.path.join(snapshot_dir, "model.safetensors"), cfg)
+        checkpoint configuration. The snapshot's ``model_type`` picks the
+        model: "mimi", or "encodec" (``facebook/encodec_24khz``)."""
+        params, cfg = read_hf_snapshot(snapshot_dir)
         return cls(params, cfg=cfg, **kwargs)
 
     # -- encode ------------------------------------------------------------
@@ -92,6 +96,10 @@ class MimiCodec:
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         """(K, T) or (B, K, T) codes -> float32 audio at 24 kHz."""
+        if isinstance(self.cfg, EncodecConfig):
+            raise NotImplementedError(
+                "EnCodec's decoder is not ported: this codec encodes EnCodec only"
+            )
         codes = np.asarray(codes)
         if codes.shape[-1] == 0:
             raise ValueError(
@@ -122,11 +130,32 @@ class MimiCodec:
         return self.decode(codes)
 
 
-def _config_from_json(raw: dict) -> MimiConfig:
-    """Map an HF config.json dict onto MimiConfig (the subset of
-    ``mimi.weights.config_from_hf`` that needs no transformers import)."""
-    fields = {f.name for f in dataclasses.fields(MimiConfig)}
-    kw = {k: v for k, v in raw.items() if k in fields}
+def _config_from_json(raw: dict, cls=MimiConfig, **modes):
+    """Map an HF config.json dict, and the run ``modes`` the class knows,
+    onto ``cls`` (for Mimi, the subset of ``mimi.weights.config_from_hf``
+    that needs no transformers import)."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kw = {k: v for k, v in {**raw, **modes}.items() if k in fields}
     if "upsampling_ratios" in kw:
         kw["upsampling_ratios"] = tuple(kw["upsampling_ratios"])
-    return MimiConfig(**kw)
+    return cls(**kw)
+
+
+def read_hf_snapshot(snapshot_dir: str, **modes):
+    """(params, cfg) of a local HF snapshot directory (config.json +
+    model.safetensors), by its ``model_type``: "mimi" (the default) or
+    "encodec". ``modes`` (``compute_dtype``, ``matmul_precision``, the
+    backends) set the run modes the model's configuration has."""
+    with open(os.path.join(snapshot_dir, "config.json")) as f:
+        raw = json.load(f)
+    weights = os.path.join(snapshot_dir, "model.safetensors")
+    kind = raw.get("model_type", "mimi")
+    if kind == "encodec":
+        if modes.get("rvq_backend", "kernel") != "kernel":
+            raise ValueError("EnCodec's RVQ runs on the kernel only (rvq_backend 'kernel')")
+        cfg = _config_from_json(raw, EncodecConfig, **modes)
+        return encodec_weights.params_from_safetensors(weights, cfg), cfg
+    if kind != "mimi":
+        raise ValueError(f"{snapshot_dir}: model_type {kind!r} is neither 'mimi' nor 'encodec'")
+    cfg = _config_from_json(raw, MimiConfig, **modes)
+    return params_from_safetensors(weights, cfg), cfg

@@ -1,4 +1,4 @@
-"""Length-bucketed Mimi batch-encode engine on one GPU.
+"""Length-bucketed Mimi (or EnCodec) batch-encode engine on one GPU.
 
 Drop-in capability replacement for the reference's ``MimiEncoder`` wrapper
 (yodas2-mimi/process_shard.py:185-274 and its nine copy-paste sites):
@@ -18,9 +18,9 @@ Differences from the reference:
     current CUDA stream and its codes are copied to pinned host memory
     with ``non_blocking=True`` behind a recorded event, so padding the next
     batch overlaps the device work of the previous ones;
-  - on CUDA the transformer stack of each batch shape is captured as a
-    CUDA graph at its first batch and replayed as one launch from its
-    second (``mimi/graphs.py``), the same ops on the same numbers.
+  - on CUDA the transformer stack (EnCodec: its LSTM) of each batch shape
+    is captured as a CUDA graph at its first batch and replayed as one launch from its
+    second (``graphs.py``), the same ops on the same numbers.
 
 With ``long_audio_policy="stream"``, utterances over the cap are encoded
 exactly by the streaming encoder (``mimi/streaming.py``), up to
@@ -31,6 +31,14 @@ drain policy of ``EngineConfig`` ("fifo", "ready", "threaded"), the
 provisioning probes (``autotune_transfer``, ``autotune_pipeline_depth``,
 ``autotune_drain_policy``, and ``request_autotune`` on the first real
 batch), and one retry of a transient device fault (``_retry_transient``).
+
+Given an ``encodec.config.EncodecConfig`` in place of a ``MimiConfig``,
+the engine runs ``facebook/encodec_24khz``'s encoder instead
+(``encodec/model.py``; 320 samples a frame, a 1024-entry codebook, no
+transformer: its LSTM is what the CUDA graphs replay), through the same
+buckets, batches, transfers and counters, in IEEE float32 and on one
+device: its bfloat16 and TF32 modes, the streaming policy and a mesh
+raise at construction (``_model_for``).
 
 With a ``parallel.mesh.Mesh`` (one process per GPU under
 ``torch.distributed``), the batch dimension is split over the mesh's
@@ -65,9 +73,12 @@ from tokenize_audio_tpu_torch.core.audio import (
     resample_many,
     split_long_audio_with_context,
 )
+from tokenize_audio_tpu_torch.encodec import model as encodec_model
+from tokenize_audio_tpu_torch.encodec import weights as encodec_weights
+from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
 from tokenize_audio_tpu_torch.engine.metrics import EngineStats, StreamTimeline
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
-from tokenize_audio_tpu_torch.mimi.graphs import TransformerGraphs
+from tokenize_audio_tpu_torch.graphs import GraphCache
 from tokenize_audio_tpu_torch.mimi.model import _check_modes, cast_for_compute
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
 from tokenize_audio_tpu_torch.mimi.streaming import StreamingMimiEncoder
@@ -128,6 +139,47 @@ def _pack_for_kernel(params, cfg: MimiConfig):
     return params
 
 
+def _prepare_mimi(params, cfg: MimiConfig, num_codebooks: int, device) -> dict:
+    """Mimi's encode params on ``device``, pruned and packed."""
+    return _pack_for_kernel(params_to_torch(_prune_for_encode(params, num_codebooks), device), cfg)
+
+
+def _mimi(*args, **kwargs):
+    # the module's ``mimi_encode`` is looked up at each batch, so a wrapper
+    # put on that name sees every launch
+    return mimi_encode(*args, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Model:
+    """What the engine takes from its model, chosen once from the type of
+    its configuration (``_model_for``): the batch encode, with
+    ``mimi.model.encode``'s contract; the params it keeps on the device,
+    from a checkpoint's tree; and the layers of a recurrence that steps
+    through every padded frame (``EngineStats.lstm_steps``). The frame's
+    length in samples is the configuration's ``samples_per_frame``."""
+
+    encode: Callable
+    prepare: Callable  # (params, cfg, num_codebooks, device) -> device tree
+    lstm_layers: int
+
+
+def _model_for(cfg, engine_cfg: EngineConfig, mesh) -> _Model:
+    """The model of ``cfg`` (a ``MimiConfig`` or an ``EncodecConfig``); an
+    unknown mode, backend or setting raises now, not at the first encode."""
+    if isinstance(cfg, EncodecConfig):
+        encodec_model.check_modes(cfg)
+        if engine_cfg.long_audio_policy == "stream":
+            raise ValueError(
+                "EnCodec has no streaming encoder: use long_audio_policy='split'"
+            )
+        if mesh is not None:
+            raise ValueError("EnCodec runs on one device: it takes no mesh")
+        return _Model(encodec_model.encode, encodec_weights.prepare, cfg.num_lstm_layers)
+    _check_modes(cfg)
+    return _Model(_mimi, _prepare_mimi, 0)
+
+
 def _mesh_device(mesh: Mesh, device) -> torch.device:
     """A mesh engine runs on its rank's device; ``device``, if given, must
     name the same one."""
@@ -144,7 +196,7 @@ class MimiEncoderEngine:
     def __init__(
         self,
         params,
-        cfg: Optional[MimiConfig] = None,
+        cfg: Optional[MimiConfig | EncodecConfig] = None,
         engine_cfg: Optional[EngineConfig] = None,
         mesh=None,
         num_codebooks: Optional[int] = None,
@@ -168,9 +220,8 @@ class MimiEncoderEngine:
         self._pending_autotune: Optional[dict] = None
         self._fetch_pool: Optional[ThreadPoolExecutor] = None  # "threaded" drain
         self.cfg = cfg or MimiConfig()
-        # refuse an unknown mode or backend now, not at the first encode
-        _check_modes(self.cfg)
         self.engine_cfg = engine_cfg or EngineConfig()
+        self._model = _model_for(self.cfg, self.engine_cfg, mesh)
         self.num_codebooks = num_codebooks or self.engine_cfg.num_codebooks
         self.masked = masked
         self.stats = EngineStats()
@@ -241,10 +292,7 @@ class MimiEncoderEngine:
         # rank of a mesh holds a replica): the decoder stack and unused
         # acoustic codebooks are ~half the checkpoint and the encode path
         # never reads them
-        params = _pack_for_kernel(
-            params_to_torch(_prune_for_encode(params, self.num_codebooks), self.device),
-            self.cfg,
-        )
+        params = self._model.prepare(params, self.cfg, self.num_codebooks, self.device)
         # bf16 mode casts the conv/transformer weights once; the streaming
         # encoders always run float32 and take the uncast tree
         self._stream_params = params
@@ -253,16 +301,17 @@ class MimiEncoderEngine:
 
     # -- internals ---------------------------------------------------------
 
-    def _new_graphs(self) -> Optional[TransformerGraphs]:
-        """A cache of the transformer stack's CUDA graphs over the engine's
-        params, which stay put for its lifetime; None off CUDA."""
+    def _new_graphs(self) -> Optional[GraphCache]:
+        """A cache of CUDA graphs over the engine's params, which stay put
+        for its lifetime (Mimi's transformer stack, EnCodec's LSTM); None
+        off CUDA."""
         if self.device.type != "cuda":
             return None
         # weakly: the engine owns the cache, and a strong reference back
         # would keep a dropped engine, its params and its graphs' memory
         # alive until the cycle collector runs
         count = weakref.WeakMethod(self._count_graph)
-        return TransformerGraphs(self.device, on_event=lambda kind: count()(kind))
+        return GraphCache(self.device, on_event=lambda kind: count()(kind))
 
     def _count_graph(self, kind: str) -> None:
         with self.stats._lock:
@@ -338,7 +387,7 @@ class MimiEncoderEngine:
                         b = torch.from_numpy(batch[rows]).to(self.device)
                         v = torch.from_numpy(lengths[rows]).to(self.device)
                     with self.stats.stage("dispatch.launch"):
-                        codes, _ = mimi_encode(
+                        codes, _ = self._model.encode(
                             self.params,
                             self.cfg,
                             b,
@@ -350,12 +399,14 @@ class MimiEncoderEngine:
                             transfer=fmt,
                             graphs=self._graphs,
                         )
-                    with self.stats._lock:
-                        self.stats.batches += 1
                     # frames per padded row = bucket / samples-per-frame in the
                     # I/O domain (source-rate when the fused resample is active)
                     io_spf = spf if resample_arg is None else spf * down // up
-                    bucket_frames = bs * int(-(-bucket // io_spf))
+                    row_frames = int(-(-bucket // io_spf))
+                    bucket_frames = bs * row_frames
+                    with self.stats._lock:
+                        self.stats.batches += 1
+                        self.stats.lstm_steps += self._model.lstm_layers * row_frames
                     if fmt == "compact":
                         # copy only the valid-frame prefix, padded UP to a 16-step
                         # lattice of the buffer size (<=1/16 overfetch)

@@ -1,12 +1,14 @@
-"""Per-shape CUDA graphs of the Mimi transformer stack.
+"""Per-shape CUDA graphs of one stage of an encode: the Mimi transformer
+stack, or EnCodec's LSTM.
 
-At the engine's small batches (16 rows of 25-750 frames) each of the
-transformer's ~35 ops a layer runs on the card for a few microseconds,
-less than the host takes to launch it, so the device waits on the host.
-A ``TransformerGraphs`` cache, handed to ``model.encode``, captures the
-whole stack (the RoPE tables, the mask and every layer: the same ops in
-the same order, so the same numbers) once per input shape and replays it
-as one launch.
+At the engine's batches such a stage launches many kernels of a few
+microseconds each (the transformer's ~35 ops a layer; cuDNN's LSTM, a
+product and a cell kernel a frame and layer), less than the host takes to
+launch them, so the device waits on the host. A ``GraphCache``, handed to
+the model's ``encode``, captures the stage (the same ops in the same
+order, so the same numbers) once per input shape and replays it as one
+launch. Nothing in it is either model's own: it captures any function of
+one tensor.
 
 Per key (shape, strides, dtype and device of the input, and the fp32
 matmul mode, IEEE or TF32, which the capture bakes in), the first call
@@ -38,8 +40,8 @@ import torch
 Capture = Callable[[Callable, torch.Tensor], tuple]
 
 
-class TransformerGraphs:
-    """A cache of captured transformer stacks for one device, owned by the
+class GraphCache:
+    """A cache of captured stages for one device, owned by the
     caller whose parameters stay at fixed addresses for the cache's life
     (the engine's). ``on_event("capture" | "replay")`` is called after
     each. ``capture`` replaces the CUDA capture (the tests drive the

@@ -36,6 +36,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from tokenize_audio_tpu_torch.config import fp32_precision, ieee_fp32
+from tokenize_audio_tpu_torch.core.transfer import transfer_layout
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.ops.cuda import rvq as rvq_ops
 from tokenize_audio_tpu_torch.ops.cuda import seanet as seanet_ops
@@ -307,7 +308,7 @@ def transformer_apply(
     LayerScale residual, where XLA puts the psum under the JAX package's
     sharding.
 
-    ``graphs``, a ``graphs.TransformerGraphs`` of a caller whose params
+    ``graphs``, a ``graphs.GraphCache`` of a caller whose params
     stay put, replays the stack from a CUDA graph per input shape where it
     engages (on its CUDA device, without ``group``, with no gradient); the
     body is the same either way."""
@@ -475,7 +476,7 @@ def encode(
     ``group`` is the model group of a tensor-parallel mesh, for params from
     ``parallel.mesh.shard_params_tp`` (see ``transformer_apply``); None
     runs the whole transformer on this device. ``graphs`` (a
-    ``graphs.TransformerGraphs``) replays the transformer stack from a
+    ``graphs.GraphCache``) replays the transformer stack from a
     CUDA graph per batch shape (``transformer_apply``).
 
     While a profiler records, each stage runs in a ``tokenize_audio::mimi.*``
@@ -548,32 +549,4 @@ def _encode(
         spf = cfg.samples_per_frame
         valid = (valid_in + spf - 1) // spf
     with span("mimi.pack"):
-        return _transfer_layout(codes, valid, num_quantizers, code_dtype, transfer), valid
-
-
-def _transfer_layout(codes, valid, num_quantizers, code_dtype, transfer):
-    """The (B, K, T) codes in ``encode``'s ``transfer`` wire format."""
-    if transfer == "padded":
-        return codes.to(getattr(torch, code_dtype))
-    if num_quantizers % 2 != 0:
-        raise ValueError(f"packed transfer needs even num_quantizers, got {num_quantizers}")
-    # pack adjacent code pairs little-endian into int32 words: the host
-    # recovers the exact (.., K) uint16 stream with a zero-copy view('<u2')
-    ct = codes.transpose(1, 2).to(torch.int32)  # (B, T, K)
-    packed = ct[..., 0::2] | (ct[..., 1::2] << 16)  # (B, T, K//2)
-    if transfer == "packed":
-        return packed
-    if transfer != "compact":
-        raise ValueError(f"unknown transfer mode {transfer!r}")
-    if valid is None:
-        raise ValueError("compact transfer requires valid lengths")
-    b, t, kp = packed.shape
-    pos = _positions(t, packed.device)[None, :]
-    fmask = (pos < valid[:, None]).reshape(-1)
-    # stable compaction: row-major frame order is preserved, so the host
-    # splits the prefix by cumulative per-row frame counts; invalid frames
-    # all land on one spill row that is cut off
-    tgt = torch.where(fmask, torch.cumsum(fmask.long(), 0) - 1, b * t)
-    out = torch.zeros((b * t + 1, kp), dtype=torch.int32, device=packed.device)
-    out.index_copy_(0, tgt, packed.reshape(b * t, kp))
-    return out[: b * t]
+        return transfer_layout(codes, valid, num_quantizers, code_dtype, transfer), valid

@@ -12,14 +12,16 @@ the run (non-zero exit, no final result line) if its check fails:
                 optional libraries (pandas, pyarrow, transformers,
                 tokenizers, huggingface_hub, safetensors) import on this machine
                 (information only);
-  2. build    — both kernels compiled for sm_90a, with nvcc's ptxas report;
+  2. build    — the three kernels compiled for sm_90a, with nvcc's ptxas
+                report;
   3. kernels  — each kernel against its plain PyTorch version at large
                 shapes: agreement, CUDA-event times, and the bound the card's
                 FP32 rate and memory rate set for the same work; the RVQ
                 line also gives how many clusters of each of its variants
                 the card holds at once, and the same check at EnCodec
                 24 kHz's shapes (D 128, V 1024, K 8; its ``encodec``
-                entry);
+                entry); EnCodec's LSTM kernel at the EnCodec cell's 1-, 5-
+                and 24-row batches, beside cuDNN's ``torch.lstm``;
   4. main     — MimiEncoderEngine at full kyutai/mimi width (random weights,
                 seed 0), 32 codebooks, packed transfer, fifo drain, on a
                 YODAS2-shaped sub-shard through encode_batch(defer=True) and
@@ -304,6 +306,10 @@ RVQ_SMALL_N = 267  # mean rows per main-path batch
 # EnCodec 24 kHz at 6 kbps: 8 books of 1024 x 128; rows (batch rows x
 # padded frames) of engine-web.encodec-8cb's largest and mean batch
 ENCODEC_RVQ = dict(n=(13_960, 7_075), d=128, v=1024, k=8)
+# EnCodec's LSTM kernel at engine-web.encodec-8cb's batches: (rows, padded
+# frames) of its longest 1-, 5- and 24-row batch (the cell's 28 batches,
+# planned from its traffic's lengths and its engine configuration)
+ENCODEC_LSTM = ((1, 4500), (5, 1857), (24, 347))
 RESBLOCK_BATCH, RESBLOCK_SECONDS = 16, 10.0
 AB_PAIRS = 6
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clocks: longer than any fn's host-side enqueue
@@ -456,6 +462,50 @@ def rvq_encodec_shapes(torch, rng, peak_flops, peak_bw) -> list:
     return rows
 
 
+def lstm_encodec_shapes(torch, peak_flops, peak_bw) -> list:
+    """The LSTM kernel at EnCodec's batches (``ENCODEC_LSTM``), with weights
+    scaled as the benchmark's: each shape against the plain version with
+    cuDNN (``torch.lstm``, what the kernel replaced, as ``library_ms``)
+    and without it (``plain_ms``: PyTorch's own LSTM, a matrix product and a
+    fused cell a step), all three timed, with the shape's bound."""
+    from tokenize_audio_tpu_torch.ops.cuda import lstm
+
+    dev = torch.device("cuda")
+    h = lstm.HIDDEN
+    g = torch.Generator().manual_seed(SEED)
+    weights = []
+    for _ in range(lstm.LAYERS):
+        weights += [torch.randn((4 * h, h), generator=g) / h**0.5,
+                    torch.randn((4 * h, h), generator=g) / h**0.5,
+                    torch.randn((4 * h,), generator=g), torch.randn((4 * h,), generator=g)]
+    weights = [w.to(dev) for w in weights]
+    packed = lstm.pack_weights(weights)  # once, as the engine does
+    n_weights = lstm.LAYERS * (2 * 4 * h * h + 2 * 4 * h)
+    rows = []
+    for b, t in ENCODEC_LSTM:
+        x = torch.randn((b, h, t), generator=g).to(dev)
+        got = lstm.lstm_residual(x, weights, lstm.LAYERS, packed)
+        want = lstm.lstm_residual_reference(x, weights, lstm.LAYERS)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= 5e-5, f"lstm kernel B={b} T={t}: max err {err} > 5e-5")
+        # pbkit/encodec_flops.lstm_call's count: both layers' input and
+        # recurrent products; x in, the sum out, the weights once
+        b_ms, b_by = bound_ms(2.0 * 4 * h * 2 * h * t * lstm.LAYERS * b,
+                              4.0 * (2 * b * t * h + n_weights), peak_flops, peak_bw)
+        ms = cuda_ms(torch, lambda: lstm.lstm_residual(x, weights, lstm.LAYERS, packed))
+        library_ms = cuda_ms(torch, lambda: lstm.lstm_residual_reference(x, weights, lstm.LAYERS))
+        with torch.backends.cudnn.flags(enabled=False):
+            plain_ms = cuda_ms(torch, lambda: lstm.lstm_residual_reference(x, weights, lstm.LAYERS),
+                               warmup=1, reps=3)
+        rows.append({"B": b, "T": t, "ms": ms, "us_per_frame": 1e3 * ms / t, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": err})
+        emit({"phase": "kernel_stage", "name": "lstm_residual", **rows[-1]})
+        del x, got, want
+    return rows
+
+
 def rvq_max_active_clusters():
     """How many clusters of each RVQ kernel variant the card holds at once
     (D = 256), by cudaOccupancyMaxActiveClusters."""
@@ -555,6 +605,25 @@ def phase_kernels(torch, peak_flops, peak_bw, rvq_extras):
             "max_active_clusters_per_variant": rvq_max_active_clusters(),
         })
         del packed, packed_ac
+        emit({"phase": "kernel", **records[-1]})
+
+        # --- EnCodec's LSTM: the engine-web.encodec-8cb cell's batches
+        shapes = lstm_encodec_shapes(torch, peak_flops, peak_bw)
+        records.append({
+            "name": "lstm_residual",
+            "route": "cuda",
+            "source": "tokenize_audio_tpu_torch/csrc/lstm.cu",
+            "replaces": "cuDNN's torch.lstm (no TPU kernel: the JAX package has no EnCodec)",
+            "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": sum(r["ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            "bound_ms": sum(r["bound_ms"] for r in shapes),
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in shapes) else "bytes",
+            "library_ms": sum(r["library_ms"] for r in shapes),
+            "shape": "sum of engine-web.encodec-8cb's longest 1-, 5- and 24-row batches",
+            "stages": shapes,
+        })
         emit({"phase": "kernel", **records[-1]})
 
         # --- SEANet resblock: the four stage shapes of a 16 x 10 s batch
@@ -4619,11 +4688,11 @@ def main(argv=None) -> int:
         for src in args.rvq_candidate_cu:
             rvq_pending[Path(src).stem] = start_extra_build(
                 Path(src).stem, src, "rvq_quantize_launch", rvq._ARGTYPES)
-        seconds = _build.build()
+        seconds = _build.build([*_build.KERNELS, "lstm"])
         ptxas = {
             k: [ln.strip() for ln in _build.build_log(k).splitlines()
                 if "registers" in ln or "spill" in ln]
-            for k in _build.KERNELS
+            for k in (*_build.KERNELS, "lstm")
         }
         extras, rvq_extras = {}, {}
         for extra, done in pending.items():
@@ -4674,6 +4743,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
             mesh_launches, mesh_shapes, mesh_rvq_shapes = timed("mesh", phase_mesh, torch, tmp)
         for r in records:
+            if r["name"] not in launches:
+                continue  # EnCodec's LSTM: no Mimi phase launches it
             r["launches"] = launches[r["name"]]
             r["stream_launches"] = stream_launches[r["name"]]
             r["yodas2_launches"] = yodas2_launches[r["name"]]

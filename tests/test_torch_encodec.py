@@ -4,8 +4,9 @@ at a time, codes bit-equal, on a tiny two-stride model with the published
 two LSTM layers; the same batch against the benchmark's plain reference;
 the checkpoint converter under both weight-norm namings; the
 configuration's defaults and bandwidths; the modes the engine refuses;
-loading a snapshot by its ``model_type``; the ``lstm_steps`` counter and
-the ``tokenize_audio::encodec.*`` ranges."""
+loading a snapshot by its ``model_type``; the LSTM's plain path on the CPU,
+its kernel's packed weights and launch count; the ``lstm_steps`` counter
+and the ``tokenize_audio::encodec.*`` ranges."""
 
 import argparse
 import dataclasses
@@ -23,6 +24,7 @@ from tokenize_audio_tpu_torch import cli  # noqa: E402
 from tokenize_audio_tpu_torch.codec import MimiCodec  # noqa: E402
 from tokenize_audio_tpu_torch.config import EngineConfig  # noqa: E402
 from tokenize_audio_tpu_torch.encodec.config import EncodecConfig  # noqa: E402
+from tokenize_audio_tpu_torch.encodec import weights as encodec_weights  # noqa: E402
 from tokenize_audio_tpu_torch.encodec.weights import convert_hf_state_dict  # noqa: E402
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine  # noqa: E402
 from tokenize_audio_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
@@ -247,30 +249,97 @@ def test_cli_engine_from_a_snapshot(model, audios, snapshot):
                                             "--rvq-backend", "torch"]))
 
 
-def test_engine_replays_the_lstm_from_its_graphs(model, audios):
-    """The engine hands its graph cache to the LSTM (on the CPU through a
-    stand-in capture whose replay runs the captured body, as a graph
-    does): codes unchanged, each batch shape captured once and replayed
-    after, counted by the engine's one pair of graph counters."""
-    from tokenize_audio_tpu_torch.graphs import GraphCache
+def test_lstm_apply_on_the_cpu_is_torch_lstm(model):
+    """On a CPU tensor ``lstm_apply`` takes the plain version: the
+    ``torch.lstm`` call over the frames, with the input added back, bit for
+    bit (each utterance's codes equal transformers' through it)."""
+    from tokenize_audio_tpu_torch.encodec import model as encodec_model
+    from tokenize_audio_tpu_torch.encodec.weights import prepare
 
-    want = engine(model).encode_batch(audios)
+    hf, cfg = model
+    params = prepare(convert_hf_state_dict(hf.state_dict(), cfg), cfg, BOOKS, "cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((3, cfg.lstm_size, 41))
+                         .astype(np.float32))
+    h = x.permute(2, 0, 1)
+    zeros = h.new_zeros((cfg.num_lstm_layers, 3, cfg.lstm_size))
+    y = torch.lstm(h, (zeros, zeros), params["lstm"]["weights"], True, cfg.num_lstm_layers,
+                   0.0, False, False, False)[0]
+    assert torch.equal(encodec_model.lstm_apply(params["lstm"], cfg, x), (y + h).permute(1, 2, 0))
+    assert "packed" not in params["lstm"]  # not the kernel's width: nothing to pack
+
+
+def test_prepare_packs_the_lstm_kernel_layout():
+    """At the published widths ``prepare`` packs the LSTM kernel's layout
+    once; it unpacks to the checkpoint's four matrices exactly and to each
+    layer's two biases summed, and a width the kernel does not run is
+    refused."""
+    from tokenize_audio_tpu_torch.encodec.weights import prepare
+    from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
+
+    cfg = EncodecConfig()
+    torch.manual_seed(1)
+    lstm = torch.nn.LSTM(cfg.lstm_size, cfg.lstm_size, cfg.num_lstm_layers)
+    params = {"enc_in": {}, "blocks": [], "enc_out": {},
+              "lstm": {"weights": [getattr(lstm, n).detach() for n in encodec_weights.lstm_names(cfg)]},
+              "rvq": {"embed": torch.zeros((cfg.num_quantizers, 4, cfg.codebook_dim))}}
+    packed = prepare(params, cfg, 8, "cpu")["lstm"]["packed"]
+    assert {k: tuple(v.shape) for k, v in packed.items()} == {
+        "w_in0": (2048, 512), "b_in0": (2048,), "rec": (128, 48, 512), "b1": (2048,)}
+    got = lstm_ops.unpack_weights(packed)
+    w = dict(lstm.named_parameters())
+    for name in ("w_ih0", "w_hh0", "w_ih1", "w_hh1"):
+        kind, layer = name[:4], name[-1]
+        assert torch.equal(got[name], w[f"weight_{kind[2:]}_l{layer}"].detach()), name
+    for layer in (0, 1):
+        assert torch.equal(got[f"b{layer}"], (w[f"bias_ih_l{layer}"] + w[f"bias_hh_l{layer}"]).detach())
+    # the packed gate order puts each block's 16 rows together: block 1's
+    # first row is unit 4's input gate, its fifth unit 4's forget gate
+    assert torch.equal(packed["w_in0"][16], w["weight_ih_l0"][4].detach())
+    assert torch.equal(packed["w_in0"][20], w["weight_ih_l0"][512 + 4].detach())
+    with pytest.raises(ValueError, match="2 layers of 512"):
+        lstm_ops.pack_weights([t[:64] for t in params["lstm"]["weights"]])
+
+
+def test_the_lstm_wrapper_refuses_what_the_kernel_does_not_take(model):
+    """Off the CPU the wrapper launches the kernel or raises: a device it
+    does not know, a width other than 512, no packed weights."""
+    from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
+
+    hf, cfg = model
+    weights = convert_hf_state_dict(hf.state_dict(), cfg)["lstm"]["weights"]
+    with pytest.raises(ValueError, match="CUDA or a CPU"):
+        lstm_ops.lstm_residual(torch.zeros((1, 16, 4), device="meta"), weights, 2, None)
+    launches = lstm_ops.lstm_residual.launches
+    lstm_ops.lstm_residual(torch.zeros((1, 16, 4)), weights, 2, None)  # the plain version
+    assert lstm_ops.lstm_residual.launches == launches
+
+
+def test_engine_counts_lstm_launches_and_keeps_no_graphs(model, audios, monkeypatch):
+    """The engine's report carries the LSTM kernel's launches in its
+    encodes (0 on the CPU; one a batch where the wrapper launches, here a
+    stand-in that counts as the kernel does), and an EnCodec engine keeps
+    no CUDA graph cache even on a CUDA device."""
+    from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
+
     eng = engine(model)
-    shapes = []
+    want = eng.encode_batch(audios)
+    assert eng.stats.as_dict()["lstm_launches"] == 0 and eng.stats.batches > 0
+    plain = lstm_ops.lstm_residual
 
-    def capture(body, static_in):
-        shapes.append(tuple(static_in.shape))
-        static_out = torch.empty_like(body(torch.zeros_like(static_in)))
-        return (lambda: static_out.copy_(body(static_in))), static_out
+    def counting(*args, **kwargs):
+        counting.launches += 1
+        return plain(*args, **kwargs)
 
-    eng._graphs = GraphCache("cpu", on_event=eng._count_graph, capture=capture)
-    for call in range(2):
-        got = eng.encode_batch(audios)
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
-    s = eng.stats
-    assert s.transformer_graph_captures == len(shapes) == len(set(shapes)) > 0
-    assert s.transformer_graph_captures + s.transformer_graph_replays == s.batches
+    counting.launches = 0
+    monkeypatch.setattr(lstm_ops, "lstm_residual", counting)
+    eng = engine(model)
+    for g, w in zip(eng.encode_batch(audios), want):
+        np.testing.assert_array_equal(g, w)
+    s = eng.stats.as_dict()
+    assert s["lstm_launches"] == s["batches"] == counting.launches > 0
+    assert s["transformer_graph_captures"] == s["transformer_graph_replays"] == 0
+    eng.device = torch.device("cuda", 0)
+    assert eng._new_graphs() is None
 
 
 def test_lstm_steps_and_ranges(model, audios):

@@ -13,10 +13,10 @@ Re-implements the encode path of ``transformers`` ``EncodecModel`` (the
       -> codes (B, K, T/320)
 
 Every function runs on the device its input tensors lie on, in IEEE
-float32 (``encode`` holds TF32 off for cuDNN's convolutions and LSTM and
-cuBLAS's matmuls); the LSTM runs on cuDNN on the card, with its weights
-flattened once (``weights.prepare``), replayed from a CUDA graph per
-batch shape when the engine hands ``encode`` its graph cache. On the CPU
+float32 (``encode`` holds TF32 off for cuDNN's convolutions and cuBLAS's
+matmuls); on the card the LSTM is one launch of a persistent kernel a
+batch (``ops/cuda/lstm.py``), with its weights packed once
+(``weights.prepare``), and the RVQ the RVQ kernel. On the CPU
 the codes match ``EncodecModel.encode``'s for each utterance encoded
 alone; tests/test_torch_encodec.py pins this.
 
@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from tokenize_audio_tpu_torch.config import fp32_precision
 from tokenize_audio_tpu_torch.core.transfer import transfer_layout
 from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
+from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
 from tokenize_audio_tpu_torch.ops.cuda import rvq as rvq_ops
 from tokenize_audio_tpu_torch.ranges import span
 
@@ -167,30 +168,17 @@ def seanet_encode(
     return x, valid
 
 
-def lstm_apply(params: Params, cfg: EncodecConfig, x: torch.Tensor, graphs=None) -> torch.Tensor:
+def lstm_apply(params: Params, cfg: EncodecConfig, x: torch.Tensor) -> torch.Tensor:
     """(B, C, T) -> (B, C, T): ``lstm(x) + x`` over the frames, the
     unidirectional multi-layer LSTM of transformers ``EncodecLSTM`` from a
     zero state, one step a frame. Columns past a row's length come out
     nonzero; ``project`` masks them.
 
-    On the card cuDNN launches a matrix product and a cell kernel for
-    every frame and layer, each a few microseconds of device work, and the
-    host takes about as long to launch them. ``graphs`` (the engine's
-    ``graphs.GraphCache``, for params that stay put)
-    replays the whole recurrence from a CUDA graph per input shape where
-    it engages: the same kernels on the same numbers, one launch."""
-    if graphs is not None and graphs.engages(x, None):
-        return graphs(lambda h: _lstm(params, cfg, h), x)
-    return _lstm(params, cfg, x)
-
-
-def _lstm(params: Params, cfg: EncodecConfig, x: torch.Tensor) -> torch.Tensor:
-    h = x.permute(2, 0, 1)  # (T, B, C)
-    zeros = h.new_zeros((cfg.num_lstm_layers, h.shape[1], cfg.lstm_size))
-    y = torch.lstm(
-        h, (zeros, zeros), params["weights"], True, cfg.num_lstm_layers, 0.0, False, False, False
-    )[0]
-    return (y + h).permute(1, 2, 0)
+    On the card: one matrix product for layer 0's input gates and one
+    launch of the persistent LSTM kernel (``ops/cuda/lstm.py``), which
+    steps both layers through every frame with the weights ``prepare``
+    packed. On the CPU: ``torch.lstm``."""
+    return lstm_ops.lstm_residual(x, params["weights"], cfg.num_lstm_layers, params.get("packed"))
 
 
 def project(
@@ -230,7 +218,6 @@ def encode(
     code_dtype: str = "int32",
     resample: Optional[Tuple[int, int]] = None,
     transfer: str = "padded",
-    graphs=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Encode (B, T) float32 or int16 24 kHz audio -> (codes, frame valid),
     on the device the audio and params lie on: the contract of
@@ -240,8 +227,6 @@ def encode(
     ``ceil(L / 320)`` frames. ``resample`` is the engine's fused on-device
     resample (rows at the source rate); ``transfer`` and ``code_dtype``
     shape the codes as ``mimi.model.encode``'s do (the same packing).
-    ``graphs`` (a ``graphs.GraphCache``) replays the LSTM from
-    a CUDA graph per batch shape (``lstm_apply``).
 
     While a profiler records, each stage runs in a
     ``tokenize_audio::encodec.*`` range (``ranges.span``): ``resample``
@@ -250,11 +235,11 @@ def encode(
     check_modes(cfg)
     with fp32_precision("ieee"):
         return _encode(
-            params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer, graphs
+            params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer
         )
 
 
-def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer, graphs):
+def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer):
     if audio.dtype == torch.int16:
         audio = audio.to(torch.float32) / 32768.0  # exact
     elif not audio.dtype.is_floating_point:
@@ -278,7 +263,7 @@ def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resam
     with span("encodec.seanet_encode"):
         x, valid = seanet_encode(params, cfg, x, valid)
     with span("encodec.lstm"):
-        x = lstm_apply(params["lstm"], cfg, x, graphs=graphs)
+        x = lstm_apply(params["lstm"], cfg, x)
     with span("encodec.project"):
         x = project(params, cfg, x, valid)
     with span("encodec.rvq"):

@@ -19,6 +19,7 @@ device):
     enc_in            {"w", "b"}                       input conv
     blocks[i]         {"res": [{"c1", "c2", "shortcut"}], "down"}
     lstm              {"weights": [w_ih_l0, w_hh_l0, b_ih_l0, b_hh_l0, ...]}
+                      (``prepare`` adds the LSTM kernel's "packed" layout)
     enc_out           {"w", "b"}                       final conv
     rvq               {"embed": (books, V, D)}
 """
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
+from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
 from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
 
 
@@ -108,25 +110,12 @@ def params_from_safetensors(path: str, cfg: Optional[EncodecConfig] = None) -> D
     return convert_hf_state_dict(load_file(path), cfg)
 
 
-def _flat_lstm(weights: List[torch.Tensor], cfg: EncodecConfig, device: torch.device) -> List[torch.Tensor]:
-    """The LSTM's tensors on ``device`` as cuDNN keeps them: views into one
-    buffer, flattened once here (``nn.LSTM.flatten_parameters``), so no
-    call copies them into cuDNN's layout again. On the CPU, the tensors."""
-    h = cfg.lstm_size
-    # made on the meta device and moved empty, so building it draws nothing
-    # from the global generator
-    lstm = torch.nn.LSTM(h, h, cfg.num_lstm_layers, device="meta").to_empty(device=device)
-    with torch.no_grad():
-        for name, w in zip(lstm_names(cfg), weights):
-            getattr(lstm, name).copy_(w)
-    lstm.flatten_parameters()
-    return [getattr(lstm, name).detach() for name in lstm_names(cfg)]
-
-
 def prepare(params: Dict[str, Any], cfg: EncodecConfig, num_codebooks: int, device) -> Dict[str, Any]:
     """The tree the engine keeps on ``device``: the first ``num_codebooks``
-    books, packed once for the RVQ kernel (``"packed"``), and the LSTM
-    flattened once for cuDNN."""
+    books, packed once for the RVQ kernel (``"packed"``), and the LSTM's
+    weights with, where they have the LSTM kernel's shape (2 layers of
+    512), the kernel's layout packed once (``lstm["packed"]``,
+    ``ops/cuda/lstm.py::pack_weights``)."""
     if not 1 <= num_codebooks <= cfg.num_quantizers:
         raise ValueError(
             f"num_codebooks {num_codebooks} not in 1..{cfg.num_quantizers} for this EnCodec"
@@ -140,7 +129,9 @@ def prepare(params: Dict[str, Any], cfg: EncodecConfig, num_codebooks: int, devi
         return _t(tree).to(device)
 
     out = to({k: params[k] for k in ("enc_in", "blocks", "enc_out")})
-    out["lstm"] = {"weights": _flat_lstm([_t(w) for w in params["lstm"]["weights"]], cfg, device)}
+    out["lstm"] = {"weights": to(params["lstm"]["weights"])}
+    if cfg.num_lstm_layers == lstm_ops.LAYERS and cfg.lstm_size == lstm_ops.HIDDEN:
+        out["lstm"]["packed"] = lstm_ops.pack_weights(out["lstm"]["weights"])
     embed = _t(params["rvq"]["embed"])[:num_codebooks].to(device).contiguous()
     out["rvq"] = {"embed": embed, "packed": pack_codebooks(embed)}
     return out

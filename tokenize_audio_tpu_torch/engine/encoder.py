@@ -18,8 +18,8 @@ Differences from the reference:
     current CUDA stream and its codes are copied to pinned host memory
     with ``non_blocking=True`` behind a recorded event, so padding the next
     batch overlaps the device work of the previous ones;
-  - on CUDA the transformer stack (EnCodec: its LSTM) of each batch shape
-    is captured as a CUDA graph at its first batch and replayed as one launch from its
+  - on CUDA Mimi's transformer stack of each batch shape is captured as a
+    CUDA graph at its first batch and replayed as one launch from its
     second (``graphs.py``), the same ops on the same numbers.
 
 With ``long_audio_policy="stream"``, utterances over the cap are encoded
@@ -35,7 +35,7 @@ batch), and one retry of a transient device fault (``_retry_transient``).
 Given an ``encodec.config.EncodecConfig`` in place of a ``MimiConfig``,
 the engine runs ``facebook/encodec_24khz``'s encoder instead
 (``encodec/model.py``; 320 samples a frame, a 1024-entry codebook, no
-transformer: its LSTM is what the CUDA graphs replay), through the same
+transformer: a 2-layer LSTM, one kernel launch a batch), through the same
 buckets, batches, transfers and counters, in IEEE float32 and on one
 device: its bfloat16 and TF32 modes, the streaming policy and a mesh
 raise at construction (``_model_for``).
@@ -83,6 +83,7 @@ from tokenize_audio_tpu_torch.mimi.model import _check_modes, cast_for_compute
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
 from tokenize_audio_tpu_torch.mimi.streaming import StreamingMimiEncoder
 from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
+from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
 from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
 from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
 from tokenize_audio_tpu_torch.parallel.mesh import Mesh, batch_sharding
@@ -156,12 +157,15 @@ class _Model:
     its configuration (``_model_for``): the batch encode, with
     ``mimi.model.encode``'s contract; the params it keeps on the device,
     from a checkpoint's tree; and the layers of a recurrence that steps
-    through every padded frame (``EngineStats.lstm_steps``). The frame's
-    length in samples is the configuration's ``samples_per_frame``."""
+    through every padded frame (``EngineStats.lstm_steps``); whether the
+    encode takes a ``graphs`` cache to replay a stage from (Mimi's
+    transformer stack). The frame's length in samples is the
+    configuration's ``samples_per_frame``."""
 
     encode: Callable
     prepare: Callable  # (params, cfg, num_codebooks, device) -> device tree
     lstm_layers: int
+    graphs: bool
 
 
 def _model_for(cfg, engine_cfg: EngineConfig, mesh) -> _Model:
@@ -175,9 +179,9 @@ def _model_for(cfg, engine_cfg: EngineConfig, mesh) -> _Model:
             )
         if mesh is not None:
             raise ValueError("EnCodec runs on one device: it takes no mesh")
-        return _Model(encodec_model.encode, encodec_weights.prepare, cfg.num_lstm_layers)
+        return _Model(encodec_model.encode, encodec_weights.prepare, cfg.num_lstm_layers, False)
     _check_modes(cfg)
-    return _Model(_mimi, _prepare_mimi, 0)
+    return _Model(_mimi, _prepare_mimi, 0, True)
 
 
 def _mesh_device(mesh: Mesh, device) -> torch.device:
@@ -303,9 +307,9 @@ class MimiEncoderEngine:
 
     def _new_graphs(self) -> Optional[GraphCache]:
         """A cache of CUDA graphs over the engine's params, which stay put
-        for its lifetime (Mimi's transformer stack, EnCodec's LSTM); None
-        off CUDA."""
-        if self.device.type != "cuda":
+        for its lifetime (Mimi's transformer stack); None off CUDA and for
+        a model that replays no stage (EnCodec)."""
+        if self.device.type != "cuda" or not self._model.graphs:
             return None
         # weakly: the engine owns the cache, and a strong reference back
         # would keep a dropped engine, its params and its graphs' memory
@@ -386,6 +390,8 @@ class MimiEncoderEngine:
                     with self.stats.stage("dispatch.upload"):
                         b = torch.from_numpy(batch[rows]).to(self.device)
                         v = torch.from_numpy(lengths[rows]).to(self.device)
+                    lstm_launches = lstm_ops.lstm_residual.launches
+                    graphs = {"graphs": self._graphs} if self._model.graphs else {}
                     with self.stats.stage("dispatch.launch"):
                         codes, _ = self._model.encode(
                             self.params,
@@ -397,7 +403,7 @@ class MimiEncoderEngine:
                             code_dtype=self.engine_cfg.code_transfer_dtype,
                             resample=resample_arg,
                             transfer=fmt,
-                            graphs=self._graphs,
+                            **graphs,
                         )
                     # frames per padded row = bucket / samples-per-frame in the
                     # I/O domain (source-rate when the fused resample is active)
@@ -407,6 +413,7 @@ class MimiEncoderEngine:
                     with self.stats._lock:
                         self.stats.batches += 1
                         self.stats.lstm_steps += self._model.lstm_layers * row_frames
+                        self.stats.lstm_launches += lstm_ops.lstm_residual.launches - lstm_launches
                     if fmt == "compact":
                         # copy only the valid-frame prefix, padded UP to a 16-step
                         # lattice of the buffer size (<=1/16 overfetch)

@@ -43,16 +43,17 @@ class EngineStats:
     batches: int = 0  # device batches launched, a retry's re-dispatch too
     stream_seconds: float = 0.0  # time the stream held some interval's work
     stream_idle_seconds: float = 0.0  # time it held none (StreamTimeline)
-    # batches whose graphed stage (Mimi's transformer stack, EnCodec's
-    # LSTM) was captured as a CUDA graph, and replayed from one (graphs.py);
-    # both 0 where no graph runs. A model graphs one stage, so one pair
-    # counts both; it keeps the name of the first stage graphed
+    # batches whose transformer stack (Mimi) was captured as a CUDA graph,
+    # and replayed from one (graphs.py); both 0 where no graph runs
     transformer_graph_captures: int = 0
     transformer_graph_replays: int = 0
     # sequential steps of a recurrence over the frames (EnCodec's LSTM):
     # per batch dispatched, its padded frames a row times the layers; 0
     # for a model without one
     lstm_steps: int = 0
+    # launches of the LSTM kernel (ops/cuda/lstm.py) in this engine's
+    # encodes: one a batch of EnCodec on the card, 0 on the CPU and for Mimi
+    lstm_launches: int = 0
     stage_seconds: Dict[str, float] = dataclasses.field(
         default_factory=lambda: defaultdict(float)
     )
@@ -113,6 +114,7 @@ class EngineStats:
             "transformer_graph_captures": self.transformer_graph_captures,
             "transformer_graph_replays": self.transformer_graph_replays,
             "lstm_steps": self.lstm_steps,
+            "lstm_launches": self.lstm_launches,
             **{f"stage_{k}": round(v, 3) for k, v in self.stage_seconds.items()},
         }
 

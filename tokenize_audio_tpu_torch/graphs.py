@@ -1,10 +1,9 @@
 """Per-shape CUDA graphs of one stage of an encode: the Mimi transformer
-stack, or EnCodec's LSTM.
+stack.
 
 At the engine's batches such a stage launches many kernels of a few
-microseconds each (the transformer's ~35 ops a layer; cuDNN's LSTM, a
-product and a cell kernel a frame and layer), less than the host takes to
-launch them, so the device waits on the host. A ``GraphCache``, handed to
+microseconds each (the transformer's ~35 ops a layer), less than the host
+takes to launch them, so the device waits on the host. A ``GraphCache``, handed to
 the model's ``encode``, captures the stage (the same ops in the same
 order, so the same numbers) once per input shape and replays it as one
 launch. Nothing in it is either model's own: it captures any function of

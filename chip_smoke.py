@@ -21,7 +21,9 @@ the run (non-zero exit, no final result line) if its check fails:
                 the card holds at once, and the same check at EnCodec
                 24 kHz's shapes (D 128, V 1024, K 8; its ``encodec``
                 entry); EnCodec's LSTM kernel at the EnCodec cell's 1-, 5-
-                and 24-row batches, beside cuDNN's ``torch.lstm``;
+                and 24-row batches, beside cuDNN's ``torch.lstm``, with
+                its launches counted by its wrapper (``lstm_residual.
+                launches``);
   4. main     — MimiEncoderEngine at full kyutai/mimi width (random weights,
                 seed 0), 32 codebooks, packed transfer, fifo drain, on a
                 YODAS2-shaped sub-shard through encode_batch(defer=True) and
@@ -77,7 +79,7 @@ the run (non-zero exit, no final result line) if its check fails:
                 interleaved RTF; a parity and a TF32 engine at once in two
                 threads (parity codes bit-equal to its run alone); a 75 s
                 utterance streamed by a bf16 engine (equal to the float32
-                engine's); fifo, ready and threaded drains (bit-equal, equal
+                engine's); fifo and ready drains (bit-equal, equal
                 frame counters, RTF); autotune_transfer,
                 autotune_pipeline_depth, autotune_drain_policy and a
                 request_autotune first batch (picks kept, codes = parity);
@@ -85,7 +87,7 @@ the run (non-zero exit, no final result line) if its check fails:
                 stream and one AcceleratorError (each retried once, codes
                 equal) and a build failure (raised, not retried); the YODAS2
                 CLI on the ``yodas2`` mirror with ``--fast --drain-policy
-                threaded --code-transfer-format auto-data`` and with
+                ready --code-transfer-format auto-data`` and with
                 ``--precision high --pipeline-depth auto --drain-policy auto
                 --autotune-seconds 5`` (complete, launches, flags in every
                 thread, code match against the parity run, whose hub stays
@@ -484,7 +486,10 @@ def lstm_encodec_shapes(torch, peak_flops, peak_bw) -> list:
     rows = []
     for b, t in ENCODEC_LSTM:
         x = torch.randn((b, h, t), generator=g).to(dev)
+        launches = lstm.lstm_residual.launches
         got = lstm.lstm_residual(x, weights, lstm.LAYERS, packed)
+        check(lstm.lstm_residual.launches == launches + 1,
+              f"lstm B={b} T={t}: the wrapper did not launch the kernel")
         want = lstm.lstm_residual_reference(x, weights, lstm.LAYERS)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -500,7 +505,7 @@ def lstm_encodec_shapes(torch, peak_flops, peak_bw) -> list:
                                warmup=1, reps=3)
         rows.append({"B": b, "T": t, "ms": ms, "us_per_frame": 1e3 * ms / t, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "max_abs_err": err})
+                     "max_abs_err": err, "launches": lstm.lstm_residual.launches - launches})
         emit({"phase": "kernel_stage", "name": "lstm_residual", **rows[-1]})
         del x, got, want
     return rows
@@ -614,7 +619,7 @@ def phase_kernels(torch, peak_flops, peak_bw, rvq_extras):
             "route": "cuda",
             "source": "tokenize_audio_tpu_torch/csrc/lstm.cu",
             "replaces": "cuDNN's torch.lstm (no TPU kernel: the JAX package has no EnCodec)",
-            "launches": None,
+            "launches": sum(r["launches"] for r in shapes),
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             "ms": sum(r["ms"] for r in shapes),
             "plain_ms": sum(r["plain_ms"] for r in shapes),
@@ -1462,8 +1467,8 @@ def phase_modes(torch, tmp, mirror):
     with their launches, TF32 flags per launch site (and four 16 kHz
     utterances, for the fused resample), code match against parity and
     interleaved RTF; a parity and a TF32 engine at once in two threads; a
-    75 s utterance streamed by a bf16 engine; the fifo, ready and threaded
-    drains; the three probes and request_autotune; one injected fault at
+    75 s utterance streamed by a bf16 engine; the fifo and ready drains;
+    the three probes and request_autotune; one injected fault at
     each retry site and a build failure; the YODAS2 CLI with --fast and
     with --precision high and the auto probes, on the ``yodas2`` phase's
     mirror. Returns each mode's kernel launches on the sub-shard."""
@@ -1561,13 +1566,12 @@ def phase_modes(torch, tmp, mirror):
     out["stream"] = {"seconds": MODES_STREAM_SECONDS, "frames": int(stream_codes["bf16"][0].shape[1])}
 
     # the drains on the same batch list
-    drains = {p: make(drain_policy=p) for p in ("fifo", "ready", "threaded")}
+    drains = {p: make(drain_policy=p) for p in ("fifo", "ready")}
     drain_codes = {p: e.encode_batch(audios, sr=SR) for p, e in drains.items()}
-    for p in ("ready", "threaded"):
-        codes_equal(drain_codes[p], drain_codes["fifo"], f"{p} drain vs fifo")
-        check(drains[p].stats.frames == drains["fifo"].stats.frames
-              and drains[p].stats.padded_frames == drains["fifo"].stats.padded_frames,
-              f"{p} drain frame counters")
+    codes_equal(drain_codes["ready"], drain_codes["fifo"], "ready drain vs fifo")
+    check(drains["ready"].stats.frames == drains["fifo"].stats.frames
+          and drains["ready"].stats.padded_frames == drains["fifo"].stats.padded_frames,
+          "ready drain frame counters")
     codes_equal(drain_codes["fifo"], codes["parity"], "fifo drain vs the parity run")
     out["drains"] = interleaved_rtf(torch, drains, audios, audio_seconds, pairs=MODES_AB_PAIRS)
 
@@ -1581,7 +1585,6 @@ def phase_modes(torch, tmp, mirror):
     check((eng.engine_cfg.code_transfer_format, eng.pipeline_depth, eng.engine_cfg.drain_policy)
           == (picks["transfer"], picks["depth"], picks["drain"]),
           f"engine not left in its picks {picks}")
-    check((eng._fetch_pool is None) == (picks["drain"] != "threaded"), "idle fetch pool")
     deferred = make()
     deferred.request_autotune(transfer=True, depth=True, **MODES_PROBE)
     codes_equal(deferred.encode_batch(audios, sr=SR), codes["parity"],
@@ -1664,7 +1667,7 @@ def phase_modes(torch, tmp, mirror):
     cli.random_params = random_params_once
     try:
         for tag, flags, precision in (
-            ("fast", ["--fast", "--drain-policy", "threaded", "--code-transfer-format",
+            ("fast", ["--fast", "--drain-policy", "ready", "--code-transfer-format",
                       "auto-data"], "ieee"),
             ("high", ["--precision", "high", "--pipeline-depth", "auto", "--drain-policy",
                       "auto", "--autotune-seconds", "5"], "tf32"),
@@ -1694,7 +1697,7 @@ def phase_modes(torch, tmp, mirror):
     finally:
         cli.random_params = real_params
     check(runs["fast"]["config"]["compute_dtype"] == "bfloat16"
-          and runs["fast"]["config"]["drain"] == "threaded" and runs["fast"]["autotune"]["transfer"],
+          and runs["fast"]["config"]["drain"] == "ready" and runs["fast"]["autotune"]["transfer"],
           f"yodas2 --fast run config {runs['fast']['config']}")
     check(runs["high"]["config"]["matmul_precision"] == "high"
           and runs["high"]["autotune"]["depth"] and runs["high"]["autotune"]["drain"],

@@ -79,11 +79,21 @@ def test_jax_backend_names_are_refused(parse, flag, value):
         parse([flag, value])
 
 
+@pytest.mark.parametrize("flags", [["--drain-policy", "threaded"],
+                                   ["--code-transfer-format", "compact"]])
+def test_removed_drain_and_format_are_refused(parse, capsys, flags):
+    """The "threaded" drain and the "compact" wire format are gone: the
+    parser refuses either before an engine is built."""
+    with pytest.raises(SystemExit):
+        parse(flags)
+    assert f"invalid choice: '{flags[1]}'" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("flags", [
     ["--fast"], ["--precision", "high"],
     ["--code-transfer-format", "auto"], ["--code-transfer-format", "auto-data"],
     ["--pipeline-depth", "auto"], ["--pipeline-depth", "auto-data"],
-    ["--drain-policy", "auto"], ["--drain-policy", "ready"], ["--drain-policy", "threaded"],
+    ["--drain-policy", "auto"], ["--drain-policy", "ready"],
 ])
 def test_unported_features_parse_then_raise(parse, monkeypatch, flags):
     """Each of these flags, refused before its feature was ported, now
@@ -111,7 +121,7 @@ def test_unported_features_parse_then_raise(parse, monkeypatch, flags):
         assert eng._pending_autotune is None and getattr(eng, probed)
     assert eng.cfg.compute_dtype == ("bfloat16" if flags == ["--fast"] else "float32")
     assert eng.cfg.matmul_precision == ("high" if flags[0] == "--precision" else "highest")
-    if value in ("ready", "threaded"):
+    if value == "ready":
         assert eng.engine_cfg.drain_policy == value
 
 

@@ -527,7 +527,7 @@ def test_parity_and_tf32_engines_at_once_on_card(cuda):
     assert parity.stats.transformer_graph_replays > 0 and fast.stats.transformer_graph_replays > 0
 
 
-@pytest.mark.parametrize("policy", ["ready", "threaded"])
+@pytest.mark.parametrize("policy", ["ready"])
 def test_drains_on_card_equal_fifo(cuda, policy):
     params = random_params(TINY, seed=4)
     ecfg = EngineConfig(batch_size=2, min_bucket_seconds=0.25, max_chunk_seconds=2.0)

@@ -37,7 +37,7 @@ def assert_same(got, want):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("fmt", ["padded", "packed", "compact"])
+@pytest.mark.parametrize("fmt", ["padded", "packed"])
 def test_engine_equals_jax(oracle, fmt):
     """defer=True + finish(), >cap split, int16 rows, every transfer format."""
     _, params, jcfg, cfg = oracle
@@ -102,14 +102,14 @@ def test_engine_needs_a_device(oracle):
     "kw",
     [
         {"engine_cfg": EngineConfig(drain_policy="ready")},
-        {"engine_cfg": EngineConfig(drain_policy="threaded")},
+        {"engine_cfg": EngineConfig(drain_policy="ready", code_transfer_format="padded")},
         {"mesh": object()},
     ],
 )
 def test_engine_unported_options_raise(oracle, kw):
-    """Options refused before they were ported now run: the "ready" and
-    "threaded" drains give FIFO's codes, and so does a 1 x 1 mesh, where an
-    object that is not a mesh raises TypeError."""
+    """Options refused before they were ported now run: the "ready" drain
+    gives FIFO's codes in either wire format, and so does a 1 x 1 mesh,
+    where an object that is not a mesh raises TypeError."""
     _, params, _, cfg = oracle
     if "mesh" in kw:
         with pytest.raises(TypeError, match="Mesh"):
@@ -125,10 +125,18 @@ def test_engine_rejects_bad_options(oracle):
     _, params, _, cfg = oracle
     with pytest.raises(ValueError, match="drain_policy"):
         MimiEncoderEngine(params, cfg, EngineConfig(drain_policy="lifo"), device="cpu")
-    with pytest.raises(ValueError, match="even"):
-        MimiEncoderEngine(params, cfg, EngineConfig(code_transfer_format="compact"),
-                          num_codebooks=7, device="cpu")
     eng = MimiEncoderEngine(params, cfg, num_codebooks=7, device="cpu")
     assert eng.engine_cfg.code_transfer_format == "padded"  # odd K falls back
     # the one legal format: picked without a probe
     assert eng.autotune_transfer() == "padded" and eng.last_autotune == {"padded": 0.0}
+
+
+@pytest.mark.parametrize("field,value", [("drain_policy", "threaded"),
+                                         ("code_transfer_format", "compact")])
+def test_engine_refuses_the_removed_drain_and_format(oracle, field, value):
+    """The "threaded" drain and the "compact" wire format, which lost to
+    "fifo" and "packed" on the H100, are gone: the constructor refuses
+    either, naming the value."""
+    _, params, _, cfg = oracle
+    with pytest.raises(ValueError, match=f"{field} '{value}'"):
+        MimiEncoderEngine(params, cfg, EngineConfig(**{field: value}), device="cpu")

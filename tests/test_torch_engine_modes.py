@@ -1,5 +1,5 @@
 """PyTorch port, engine modes on the CPU at the tiny oracle config: the
-"ready" and "threaded" drains, transient-fault retry and the autotune
+"ready" drain, transient-fault retry and the autotune
 probes, held against the JAX package's engine (codes bit-equal) and
 mirroring its tests (tests/test_engine.py)."""
 
@@ -166,20 +166,18 @@ def test_accelerator_error_retried_only_if_the_device_recovers(oracle, audios, w
     assert eng.stats.transient_retries == 1
 
 
-@pytest.mark.parametrize("policy", ["ready", "threaded"])
+@pytest.mark.parametrize("policy", ["ready"])
 def test_drains_bit_equal_to_fifo(oracle, fifo_drain, policy):
     """"ready" collects whichever batch is ready first (FIFO on the CPU,
-    where no batch has an event) and "threaded" collects from a pool: order
-    and bits equal FIFO's (held equal to the JAX engine's by
-    tests/test_torch_engine.py) across buckets and tails at depth 4, eager
-    and deferred, with the same frame counters."""
+    where no batch has an event): order and bits equal FIFO's (held equal
+    to the JAX engine's by tests/test_torch_engine.py) across buckets and
+    tails at depth 4, eager and deferred, with the same frame counters."""
     fifo, frames, padded = fifo_drain
-    other = engine(oracle, **DRAIN_KW, drain_policy=policy, fetch_threads=3, pipeline_depth=4)
+    other = engine(oracle, **DRAIN_KW, drain_policy=policy, pipeline_depth=4)
     audios = utts(5, DRAIN_LENGTHS)
     assert_same(other.encode_batch(audios), fifo)
     assert (other.stats.frames, other.stats.padded_frames) == (frames, padded)
     assert_same(other.encode_batch(audios, defer=True)(), fifo)
-    assert (other._fetch_pool is not None) == (policy == "threaded")
 
 
 def test_drain_policy_validated(oracle):
@@ -208,13 +206,6 @@ def test_autotune_on_samples(oracle, audios, want):
     assert_same(eng.encode_batch(audios), want)
 
 
-def test_autotune_try_compact_opt_in(oracle):
-    eng = engine(oracle)
-    chosen = eng.autotune_transfer(seconds=1.5, rounds=1, try_compact=True)
-    assert set(eng.last_autotune) == {"packed", "padded", "compact"}
-    assert chosen == min(eng.last_autotune, key=eng.last_autotune.get)
-
-
 def test_autotune_pipeline_depth(oracle, audios, want):
     eng = engine(oracle)
     best = eng.autotune_pipeline_depth(depths=(1, 2), seconds=2.0, rounds=1)
@@ -226,16 +217,17 @@ def test_autotune_pipeline_depth(oracle, audios, want):
 
 
 def test_autotune_drain_policy(oracle, audios, want):
-    """The probe picks a policy, records per-policy medians, leaves no idle
-    fetch pool behind a non-threaded winner, and rejects junk names."""
+    """The probe picks a policy, records per-policy medians, and rejects
+    junk names and the removed "threaded" drain."""
     eng = engine(oracle)
     best = eng.autotune_drain_policy(seconds=2.0, rounds=1)
-    assert best in ("fifo", "ready", "threaded") and eng.engine_cfg.drain_policy == best
-    assert set(eng.last_autotune_drain) == {"fifo", "ready", "threaded"}
-    assert (eng._fetch_pool is None) == (best != "threaded")
+    assert best in ("fifo", "ready") and eng.engine_cfg.drain_policy == best
+    assert set(eng.last_autotune_drain) == {"fifo", "ready"}
     assert_same(eng.encode_batch(audios), want)
     with pytest.raises(ValueError, match="drain"):
         eng.autotune_drain_policy(policies=("fifo", "bogus"), seconds=0.5, rounds=1)
+    with pytest.raises(ValueError, match="threaded"):
+        eng.autotune_drain_policy(policies=("fifo", "threaded"), seconds=0.5, rounds=1)
 
 
 def test_request_autotune_defers_to_first_batch(oracle, audios, want):
@@ -286,13 +278,12 @@ def test_autotune_single_candidate_skips_probe(oracle, monkeypatch):
 
 
 # (probe, the encode_batch call it is interrupted at): a pass run under a
-# candidate other than the engine's own (for "drain", after the threaded
-# warm pass has made the fetch pool)
+# candidate other than the engine's own
 @pytest.mark.parametrize("probe,at", [("transfer", 3), ("depth", 3), ("drain", 4)])
 def test_interrupted_probe_restores_the_engine(oracle, monkeypatch, probe, at):
     """A probe interrupted mid-way (KeyboardInterrupt, which ``except
     Exception`` would miss) leaves the engine in its own config, depth and
-    stats, with no fetch pool behind a non-threaded policy."""
+    stats."""
     eng = engine(oracle, batch_size=2, code_transfer_format="padded", pipeline_depth=5)
     cfg_before, stats_before = eng.engine_cfg, eng.stats
     real, calls = MimiEncoderEngine.encode_batch, {"n": 0}
@@ -314,7 +305,6 @@ def test_interrupted_probe_restores_the_engine(oracle, monkeypatch, probe, at):
     assert calls["n"] == at
     assert eng.engine_cfg is cfg_before and eng.pipeline_depth == 5
     assert eng.stats is stats_before and eng.stats.utterances == 0
-    assert eng._fetch_pool is None
     monkeypatch.setattr(MimiEncoderEngine, "encode_batch", real)
     assert eng.encode_batch(utts(13, [5000]))[0].shape == (8, 3)
 

@@ -101,7 +101,7 @@ def test_codes_bit_equal_hf_standalone(oracle):
         np.testing.assert_array_equal(got[i, :, : ref.shape[1]].numpy(), ref)
 
 
-@pytest.mark.parametrize("transfer", ["packed", "compact"])
+@pytest.mark.parametrize("transfer", ["packed", "padded"])
 def test_transfer_formats_equal_jax(oracle, transfer):
     _, jparams, jcfg, params, cfg = oracle
     rng = np.random.default_rng(4)

@@ -67,7 +67,7 @@ def test_engine_dp_mesh_equals_jax_solo(world_and_refs):
 
 def test_packed_and_padded_under_mesh(world_and_refs):
     """Packed (the default) and padded transfer under the mesh give the
-    JAX codes (compact is refused: test_mesh_refusals)."""
+    JAX codes (the removed "compact" is refused: test_mesh_refusals)."""
     world, refs = world_and_refs
     x = child.inputs()
     check_engines(world, refs, "engine24", refs["audios24"], x["audios24"])
@@ -104,7 +104,7 @@ def test_stream_policy_under_mesh(world_and_refs):
 
 
 def test_mesh_refusals(world_and_refs):
-    """batch_size % dp, compact, a non-mesh object, the four autotune
+    """batch_size % dp, the removed "compact" format, a non-mesh object, the four autotune
     calls under a multiprocess mesh, an oversized grid, an uneven span."""
     check_refusals(world_and_refs[0])
 

@@ -121,6 +121,21 @@ def lines(out: str) -> list:
             for ln in out.splitlines() if not ln.startswith("device:")]
 
 
+def without_variant(out: str, name: str) -> str:
+    """A JAX probe's stdout without one variant the port does not have: its
+    entry of each round line, its median line and its RESULT entry."""
+    kept = []
+    for ln in out.splitlines():
+        if ln.strip().startswith(f"{name}:"):
+            continue
+        if ln.startswith("RESULT "):
+            res = json.loads(ln[7:])
+            del res[name]
+            ln = "RESULT " + json.dumps(res)
+        kept.append(re.sub(rf"\s*\b{name}=\S+", "", ln))
+    return "\n".join(kept)
+
+
 def result_of(out: str) -> dict:
     return json.loads(next(ln for ln in out.splitlines() if ln.startswith("RESULT "))[7:])
 
@@ -269,13 +284,17 @@ def test_warm_and_check_equal_names_the_engine_that_differs():
 
 
 def test_drain_policy_probe_matches_jax(jax_runs, port, capsys):
+    """The JAX probe's lines and codes for the drains the port keeps (its
+    third, "threaded", is not in the port)."""
     run = jax_runs["drain_policy_probe"]
     got = drain_policy_probe.main(["1", "--device", "cpu"])
-    assert lines(capsys.readouterr().out) == lines(run["out"])
-    # the three policies' warm codes, asserted equal by the probe
-    assert_codes_equal([got["codes"]] * 3, run["warm"])
+    assert "threaded" in run["out"]
+    assert lines(capsys.readouterr().out) == lines(without_variant(run["out"], "threaded"))
+    # fifo's and ready's warm codes, asserted equal by the probe; the JAX
+    # engines' in the same order, its threaded one's last
+    assert_codes_equal([got["codes"]] * 2, run["warm"][:2])
     assert got["device"] == "cpu"
-    assert list(got["median_x_realtime"]) == ["fifo", "ready", "threaded"]
+    assert list(got["median_x_realtime"]) == ["fifo", "ready"]
 
 
 def test_fetch_ahead_probe_matches_jax(jax_runs, port, capsys):
@@ -304,15 +323,19 @@ def test_fetch_dtype_probe_matches_jax(jax_runs, port, capsys):
 
 
 def test_fetch_pack_probe_matches_jax(jax_runs, port, capsys):
+    """The JAX probe's lines, RESULT keys and codes for the wire formats the
+    port keeps (its third, "compact", is not in the port)."""
     run = jax_runs["fetch_pack_probe"]
     got = fetch_pack_probe.main(["--rounds", "1", "--utts", "3", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert lines(out) == lines(run["out"])
-    want = result_of(run["out"])
+    assert list(result_of(run["out"])) == ["padded", "packed", "compact"]
+    jax_out = without_variant(run["out"], "compact")
+    assert lines(out) == lines(jax_out)
+    want = result_of(jax_out)
     assert result_of(out) == got["result"]
     assert {k: set(v) for k, v in got["result"].items()} == {k: set(v) for k, v in want.items()}
-    assert list(want) == ["padded", "packed", "compact"]
-    assert_codes_equal([got["codes"]] * 3, run["warm"])
+    assert list(want) == list(got["result"]) == ["padded", "packed"]
+    assert_codes_equal([got["codes"]] * 2, run["warm"][:2])
 
 
 def test_growth_probe_matches_jax(jax_runs, port, capsys):

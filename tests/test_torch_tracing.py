@@ -88,9 +88,9 @@ def flaky(real, fails):
 
 
 @pytest.mark.parametrize("policy,fault,extra", [
-    ("fifo", None, 0), ("ready", None, 0), ("threaded", None, 0),
+    ("fifo", None, 0), ("ready", None, 0),
     # a fault at collect re-dispatches the batch: the device runs it twice
-    ("fifo", "collect", 1), ("threaded", "collect", 1),
+    ("fifo", "collect", 1), ("ready", "collect", 1),
     # a fault raised inside the dispatch's launch: the retry is its one launch
     ("fifo", "dispatch", 0),
 ])
@@ -114,8 +114,7 @@ def test_batches_and_sub_stages_in_every_drain(params, audios, policy, fault, ex
     # work between them, and no more than the call
     assert s.stream_seconds > 0 and s.stream_idle_seconds > 0
     assert s.stream_seconds + s.stream_idle_seconds <= t1 - t0
-    if policy != "threaded":  # a fetch thread's re-dispatch overlaps the main thread's
-        assert s.stream_seconds >= st["dispatch.launch"]
+    assert s.stream_seconds >= st["dispatch.launch"]
     d = s.as_dict()
     assert d["batches"] == s.batches and d["stream_seconds"] == round(s.stream_seconds, 3)
     assert {"stage_dispatch.upload", "stage_dispatch.launch", "stage_fetch.wait"} <= set(d)

@@ -226,7 +226,7 @@ def check_refusals(world):
     for info in world.info:
         r = info["refusals"]
         assert r["batch_divisibility"][0] == "ValueError" and "divide evenly" in r["batch_divisibility"][1]
-        assert r["compact"][0] == "ValueError" and "single-device" in r["compact"][1]
+        assert r["compact"][0] == "ValueError" and "'compact'" in r["compact"][1]
         assert r["not_a_mesh"][0] == "TypeError"
         for k in ("autotune_transfer", "autotune_pipeline_depth", "autotune_drain_policy",
                   "request_autotune"):

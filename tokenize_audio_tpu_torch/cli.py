@@ -94,10 +94,9 @@ def add_engine_args(ap: argparse.ArgumentParser, batch_size: int = 16) -> None:
     ap.add_argument(
         "--code-transfer-format",
         default=None,
-        choices=["padded", "packed", "compact", "auto", "auto-data"],
+        choices=["padded", "packed", "auto", "auto-data"],
         help="device->host code wire format (default EngineConfig default; "
-        "see config.py — 'compact' fetches only packed valid frames). "
-        "'auto' probes packed vs padded on this machine with an "
+        "see config.py). 'auto' probes packed vs padded on this machine with an "
         "interleaved A/B at startup and keeps the fastest; 'auto-data' "
         "defers the probe to the first real batch and times the shard's "
         "own utterances instead of a synthetic workload",
@@ -113,12 +112,11 @@ def add_engine_args(ap: argparse.ArgumentParser, batch_size: int = 16) -> None:
     ap.add_argument(
         "--drain-policy",
         default=None,
-        choices=["fifo", "ready", "threaded", "auto"],
+        choices=["fifo", "ready", "auto"],
         help="in-flight batch collection order (default EngineConfig "
         "default): fifo = dispatch order; ready = whichever batch's codes "
-        "reached the host first; threaded = a small fetch pool collects "
-        "them. Bit- and order-identical in every mode (pure transport "
-        "scheduling). 'auto' runs the interleaved probe at startup",
+        "reached the host first. Bit- and order-identical in both (pure "
+        "transport scheduling). 'auto' runs the interleaved probe at startup",
     )
     ap.add_argument(
         "--autotune-seconds",

@@ -251,16 +251,11 @@ class EngineConfig:
     #   "packed"  — adjacent code pairs packed 16-bit-aligned into int32
     #               words: half the bytes, zero-cost host unpack (a
     #               little-endian view).
-    #   "compact" — packed + valid frames gathered to the front on device;
-    #               the engine copies only a 16-step-lattice prefix sized
-    #               from host-known frame counts. Requires masked mode.
     code_transfer_format: str = "packed"
     # device->host collection order for in-flight batches: "fifo" (oldest
-    # first), "ready" (the first whose copy has landed, else the oldest) or
-    # "threaded" (a pool of fetch_threads collects them). Order and bits of
-    # the results are the same in every policy.
+    # first) or "ready" (the first whose copy has landed, else the oldest).
+    # Order and bits of the results are the same in both.
     drain_policy: str = "fifo"
-    fetch_threads: int = 4
 
     @property
     def max_chunk_samples(self) -> int:

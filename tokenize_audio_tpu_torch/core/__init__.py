@@ -1,5 +1,6 @@
-"""Audio DSP for the port (``core.audio``) and the code<->unicode converter
-(``core.codes``)."""
+"""Audio DSP for the port (``core.audio``), the code<->unicode converter
+(``core.codes``) and the models' shared encode contract
+(``core.contract``)."""
 
 from tokenize_audio_tpu_torch.core.audio import (  # noqa: F401
     bucket_for_length,

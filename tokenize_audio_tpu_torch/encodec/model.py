@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from tokenize_audio_tpu_torch.config import fp32_precision
-from tokenize_audio_tpu_torch.core.transfer import transfer_layout
+from tokenize_audio_tpu_torch.core.contract import encode_epilogue, encode_prologue
 from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
 from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
 from tokenize_audio_tpu_torch.ops.cuda import rvq as rvq_ops
@@ -240,23 +240,10 @@ def encode(
 
 
 def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer):
-    if audio.dtype == torch.int16:
-        audio = audio.to(torch.float32) / 32768.0  # exact
-    elif not audio.dtype.is_floating_point:
-        raise TypeError(f"integer audio must be int16 PCM (got {audio.dtype})")
+    audio, valid, frames = encode_prologue(
+        "encodec", audio, valid, masked, resample, cfg.samples_per_frame
+    )
     audio = audio.to(torch.float32)
-    if resample is not None:
-        if not masked or valid is None:
-            raise ValueError("fused resample requires masked=True with valid lengths")
-        from tokenize_audio_tpu_torch.core.audio import _resample_batch
-
-        up, down = resample
-        with span("encodec.resample"):
-            audio = _resample_batch(audio, up, down)
-        valid = (valid * up + down - 1) // down
-    valid_in = valid
-    if not masked:
-        valid = None
     # the masked invariant from the first layer on: zero past each row's
     # length (the fused resample rings there)
     x = _mask(audio[:, None, :], valid)
@@ -268,8 +255,4 @@ def _encode(params, cfg, audio, valid, num_quantizers, masked, code_dtype, resam
         x = project(params, cfg, x, valid)
     with span("encodec.rvq"):
         codes = rvq_encode(params["rvq"], x, num_quantizers)
-    if valid is None and valid_in is not None:
-        spf = cfg.samples_per_frame
-        valid = (valid_in + spf - 1) // spf
-    with span("encodec.pack"):
-        return transfer_layout(codes, valid, num_quantizers, code_dtype, transfer), valid
+    return encode_epilogue("encodec", codes, valid, frames, num_quantizers, code_dtype, transfer)

@@ -26,8 +26,8 @@ With ``long_audio_policy="stream"``, utterances over the cap are encoded
 exactly by the streaming encoder (``mimi/streaming.py``), up to
 ``stream_batch`` of them multiplexed through one carried state.
 
-Every mode of ``MimiConfig`` runs (bfloat16 compute, TF32 matmuls), every
-drain policy of ``EngineConfig`` ("fifo", "ready", "threaded"), the
+Every mode of ``MimiConfig`` runs (bfloat16 compute, TF32 matmuls), both
+drain policies of ``EngineConfig`` ("fifo", "ready"), the
 provisioning probes (``autotune_transfer``, ``autotune_pipeline_depth``,
 ``autotune_drain_policy``, and ``request_autotune`` on the first real
 batch), and one retry of a transient device fault (``_retry_transient``).
@@ -56,7 +56,6 @@ import logging
 import math
 import time
 import weakref
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -82,10 +81,7 @@ from tokenize_audio_tpu_torch.graphs import GraphCache
 from tokenize_audio_tpu_torch.mimi.model import _check_modes, cast_for_compute
 from tokenize_audio_tpu_torch.mimi.model import encode as mimi_encode
 from tokenize_audio_tpu_torch.mimi.streaming import StreamingMimiEncoder
-from tokenize_audio_tpu_torch.mimi.weights import params_to_torch
-from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
-from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
-from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
+from tokenize_audio_tpu_torch.mimi import weights as mimi_weights
 from tokenize_audio_tpu_torch.parallel.mesh import Mesh, batch_sharding
 from tokenize_audio_tpu_torch.ranges import span
 
@@ -99,50 +95,6 @@ logger = logging.getLogger(__name__)
 _TRANSIENT = (torch.OutOfMemoryError,) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()
 )
-
-
-def _prune_for_encode(params, num_codebooks: int):
-    """Drop the param subtrees the encode path never touches: the decoder
-    stack (dec/dec_tfm/upsample), RVQ output projections, and acoustic
-    codebooks beyond the requested depth."""
-    keep = {
-        k: v
-        for k, v in params.items()
-        if k in ("enc_in", "blocks", "enc_out", "tfm", "downsample", "rvq")
-    }
-    rvq = {}
-    for head in ("semantic", "acoustic"):
-        h = dict(params["rvq"][head])
-        h.pop("out_proj", None)
-        rvq[head] = h
-    n_sem = rvq["semantic"]["embed"].shape[0]
-    n_ac = max(0, num_codebooks - n_sem)
-    rvq["semantic"]["embed"] = rvq["semantic"]["embed"][: min(n_sem, num_codebooks)]
-    rvq["acoustic"]["embed"] = rvq["acoustic"]["embed"][:n_ac]
-    keep["rvq"] = rvq
-    return keep
-
-
-def _pack_for_kernel(params, cfg: MimiConfig):
-    """Give each SEANet block's residual unit its conv weights in the fused
-    resblock kernel's layout, and each RVQ head its codebooks in the RVQ
-    kernel's, as ``"packed"``: packed once, when the parameters reach the
-    device, and passed to every launch."""
-    # the fused resblock kernel takes float32 only: bf16 mode runs the
-    # plain convs (as the JAX package's f32-only Pallas dispatch does)
-    if cfg.seanet_backend == "kernel" and cfg.compute_dtype == "float32":
-        for block in params["blocks"]:
-            res = block["res"][0]
-            res["packed"] = pack_weights(res["c1"]["w"], res["c2"]["w"])
-    if cfg.rvq_backend == "kernel":
-        for head in params["rvq"].values():
-            head["packed"] = pack_codebooks(head["embed"])
-    return params
-
-
-def _prepare_mimi(params, cfg: MimiConfig, num_codebooks: int, device) -> dict:
-    """Mimi's encode params on ``device``, pruned and packed."""
-    return _pack_for_kernel(params_to_torch(_prune_for_encode(params, num_codebooks), device), cfg)
 
 
 def _mimi(*args, **kwargs):
@@ -181,7 +133,7 @@ def _model_for(cfg, engine_cfg: EngineConfig, mesh) -> _Model:
             raise ValueError("EnCodec runs on one device: it takes no mesh")
         return _Model(encodec_model.encode, encodec_weights.prepare, cfg.num_lstm_layers, False)
     _check_modes(cfg)
-    return _Model(_mimi, _prepare_mimi, 0, True)
+    return _Model(_mimi, mimi_weights.prepare, 0, True)
 
 
 def _mesh_device(mesh: Mesh, device) -> torch.device:
@@ -222,7 +174,6 @@ class MimiEncoderEngine:
         self.last_autotune_depth: dict = {}  # per-depth median probe seconds
         self.last_autotune_drain: dict = {}  # per-policy median probe seconds
         self._pending_autotune: Optional[dict] = None
-        self._fetch_pool: Optional[ThreadPoolExecutor] = None  # "threaded" drain
         self.cfg = cfg or MimiConfig()
         self.engine_cfg = engine_cfg or EngineConfig()
         self._model = _model_for(self.cfg, self.engine_cfg, mesh)
@@ -237,20 +188,13 @@ class MimiEncoderEngine:
             self.engine_cfg.sample_rate, self.cfg.samples_per_frame
         )
         fmt = self.engine_cfg.code_transfer_format
-        if fmt not in ("padded", "packed", "compact"):
-            raise ValueError(f"unknown code_transfer_format {fmt!r}")
-        if self.engine_cfg.drain_policy not in ("fifo", "ready", "threaded"):
+        if fmt not in ("padded", "packed"):
+            raise ValueError(f"unknown code_transfer_format {fmt!r}: 'padded' or 'packed'")
+        if self.engine_cfg.drain_policy not in ("fifo", "ready"):
             raise ValueError(
-                f"unknown drain_policy {self.engine_cfg.drain_policy!r}"
+                f"unknown drain_policy {self.engine_cfg.drain_policy!r}: 'fifo' or 'ready'"
             )
-        if fmt != "padded" and self.num_codebooks % 2 != 0:
-            if fmt == "compact":
-                # compact is always an explicit opt-in (the default is
-                # packed); refuse instead of silently downgrading
-                raise ValueError(
-                    f"compact transfer packs code pairs; num_codebooks "
-                    f"{self.num_codebooks} must be even"
-                )
+        if fmt == "packed" and self.num_codebooks % 2 != 0:
             # pair packing needs even K; an odd-codebook engine (e.g.
             # semantic-only K=1) must keep working under the packed
             # DEFAULT, so fall back instead of raising
@@ -261,14 +205,6 @@ class MimiEncoderEngine:
             )
             self.engine_cfg = dataclasses.replace(
                 self.engine_cfg, code_transfer_format="padded"
-            )
-        if self.engine_cfg.code_transfer_format == "compact" and not self.masked:
-            raise ValueError("compact transfer requires masked=True")
-        if self.engine_cfg.code_transfer_format == "compact" and mesh is not None:
-            raise ValueError(
-                "compact transfer is single-device (the compaction cumsum "
-                "would gather across the batch sharding); use 'packed' or "
-                "'padded' with a mesh"
             )
         self.mesh = mesh
         self._batch_sharding = None
@@ -370,7 +306,6 @@ class MimiEncoderEngine:
             # narrow-transfer fast path (pad_to_bucket falls back to f32 on mix)
             pad_dtype = group[0].dtype if group else np.float32
             group += [np.zeros(1, dtype=pad_dtype)] * (bs - n_real)
-            fmt = self.engine_cfg.code_transfer_format
             with self.stats.stage("pad"):
                 batch, lengths = pad_to_bucket(group, bucket)
             # per-row frame counts are host-derivable (the ceil-division chain
@@ -390,7 +325,6 @@ class MimiEncoderEngine:
                     with self.stats.stage("dispatch.upload"):
                         b = torch.from_numpy(batch[rows]).to(self.device)
                         v = torch.from_numpy(lengths[rows]).to(self.device)
-                    lstm_launches = lstm_ops.lstm_residual.launches
                     graphs = {"graphs": self._graphs} if self._model.graphs else {}
                     with self.stats.stage("dispatch.launch"):
                         codes, _ = self._model.encode(
@@ -402,7 +336,7 @@ class MimiEncoderEngine:
                             masked=self.masked,
                             code_dtype=self.engine_cfg.code_transfer_dtype,
                             resample=resample_arg,
-                            transfer=fmt,
+                            transfer=self.engine_cfg.code_transfer_format,
                             **graphs,
                         )
                     # frames per padded row = bucket / samples-per-frame in the
@@ -413,14 +347,6 @@ class MimiEncoderEngine:
                     with self.stats._lock:
                         self.stats.batches += 1
                         self.stats.lstm_steps += self._model.lstm_layers * row_frames
-                        self.stats.lstm_launches += lstm_ops.lstm_residual.launches - lstm_launches
-                    if fmt == "compact":
-                        # copy only the valid-frame prefix, padded UP to a 16-step
-                        # lattice of the buffer size (<=1/16 overfetch)
-                        total = int(frames.sum())
-                        cap = codes.shape[0]
-                        step = max(1, cap // 16)
-                        codes = codes[: min(cap, -(-total // step) * step)]
                     if self._multiprocess:
                         codes = self._gather_rows(codes)
                     # queue the device->host copy now, behind the encode on the same
@@ -498,7 +424,7 @@ class MimiEncoderEngine:
             if self._multiprocess or not self._device_recovers(e):
                 raise
             logger.warning("transient device fault %s; retrying once: %s", what, e)
-            with self.stats._lock:  # the threaded drain retries concurrently
+            with self.stats._lock:
                 self.stats.transient_retries += 1
             return (recover or attempt)()
 
@@ -521,36 +447,25 @@ class MimiEncoderEngine:
     def _trim(self, codes: np.ndarray, n_real: int, frames) -> "tuple[List[np.ndarray], int]":
         """Each real row's (K, frames) codes from a batch's host buffer in
         the transfer format, and the frames they hold."""
-        fmt = self.engine_cfg.code_transfer_format
         dtype = np.dtype(self.engine_cfg.code_transfer_dtype)
         out = []
         n_frames = 0
-        if fmt == "padded":
+        if self.engine_cfg.code_transfer_format == "padded":
             for i in range(n_real):
                 f = int(frames[i])
                 # copy: a trimmed VIEW would pin the whole (B, K, T_bucket)
                 # batch buffer for as long as a caller keeps one row's codes
                 out.append(codes[i, :, :f].copy())
                 n_frames += f
-        elif fmt == "packed":
-            # packed modes: int32 words -> exact uint16 code stream via a
-            # zero-copy little-endian view (pairs pack low|high<<16)
+        else:
+            # int32 words -> exact uint16 code stream via a zero-copy
+            # little-endian view (pairs pack low|high<<16)
             u16 = np.ascontiguousarray(codes).view("<u2")
             u16 = u16.reshape(codes.shape[0], codes.shape[1], -1)  # (B, T, K)
             for i in range(n_real):
                 f = int(frames[i])
                 out.append(u16[i, :f].T.astype(dtype))
                 n_frames += f
-        else:
-            # compact: prefix rows are valid frames in row order
-            u16 = np.ascontiguousarray(codes).view("<u2")
-            u16 = u16.reshape(codes.shape[0], -1)  # (rows, K)
-            off = 0
-            for i in range(n_real):
-                f = int(frames[i])
-                out.append(u16[off : off + f].T.astype(dtype))
-                n_frames += f
-                off += f
         return out, n_frames
 
     def _prepare_mono(self, audio: np.ndarray) -> np.ndarray:
@@ -708,49 +623,34 @@ class MimiEncoderEngine:
         # host-concurrency role of the reference's ThreadPoolExecutor,
         # yodas2-mimi/process_shard.py:690-717)
         results: List[Optional[np.ndarray]] = [None] * len(pieces)
-        # (handle, idxs, bucket, budget_len), or (future, idxs) when threaded
-        inflight: List[tuple] = []
+        inflight: List[tuple] = []  # (handle, idxs, bucket, budget_len)
         # a multiprocess mesh keeps FIFO: collection must not interleave
         # with the collective schedule every rank follows
         policy = "fifo" if self._multiprocess else self.engine_cfg.drain_policy
-        if policy == "threaded" and self._fetch_pool is None:
-            self._fetch_pool = ThreadPoolExecutor(
-                max_workers=max(1, self.engine_cfg.fetch_threads),
-                thread_name_prefix="ta-fetch",
-            )
 
-        def collect_with_retry(handle, idxs, bucket, budget_len):
+        def drain_one():
+            pick = 0
+            if policy == "ready":
+                # the first batch whose codes have reached the host, so
+                # this collect never waits behind a slower, older one;
+                # FIFO when none has (or on the CPU, with no events).
+                # Results scatter by piece index, so the order of
+                # collection never changes the output's order or bits.
+                pick = next(
+                    (j for j, (h, *_) in enumerate(inflight)
+                     if h[1] is not None and h[1].query()),
+                    0,
+                )
+            handle, idxs, bucket, budget_len = inflight.pop(pick)
             # a fault at collect time recovers by re-dispatching the whole
             # group and collecting that
-            return self._retry_transient(
+            collected = self._retry_transient(
                 f"collecting a {len(idxs)}-row batch",
                 lambda: self._collect(handle),
                 recover=lambda: self._collect(
                     self._dispatch([pieces[g] for g in idxs], bucket, resample_arg, budget_len)
                 ),
             )
-
-        def drain_one():
-            if policy == "threaded":
-                # the pool started this collect at dispatch time; up to
-                # fetch_threads collects wait on their copies at once
-                fut, idxs = inflight.pop(0)
-                collected = fut.result()
-            else:
-                pick = 0
-                if policy == "ready":
-                    # the first batch whose codes have reached the host, so
-                    # this collect never waits behind a slower, older one;
-                    # FIFO when none has (or on the CPU, with no events).
-                    # Results scatter by piece index, so the order of
-                    # collection never changes the output's order or bits.
-                    pick = next(
-                        (j for j, (h, *_) in enumerate(inflight)
-                         if h[1] is not None and h[1].query()),
-                        0,
-                    )
-                handle, idxs, bucket, budget_len = inflight.pop(pick)
-                collected = collect_with_retry(handle, idxs, bucket, budget_len)
             for g, c in zip(idxs, collected):
                 results[g] = c
 
@@ -761,13 +661,7 @@ class MimiEncoderEngine:
                     [pieces[g] for g in idxs], bucket, resample_arg, budget_len
                 ),
             )
-            if policy == "threaded":
-                fut = self._fetch_pool.submit(
-                    collect_with_retry, handle, idxs, bucket, budget_len
-                )
-                inflight.append((fut, idxs))
-            else:
-                inflight.append((handle, idxs, bucket, budget_len))
+            inflight.append((handle, idxs, bucket, budget_len))
             if len(inflight) >= self.pipeline_depth:
                 drain_one()
 
@@ -954,13 +848,6 @@ class MimiEncoderEngine:
         finally:
             self.stats, self.engine_cfg, self.pipeline_depth = saved
 
-    def _drop_idle_fetch_pool(self) -> None:
-        """Shut down the fetch pool when the drain policy does not use it
-        (a probe's "threaded" passes create it)."""
-        if self.engine_cfg.drain_policy != "threaded" and self._fetch_pool is not None:
-            self._fetch_pool.shutdown(wait=True)
-            self._fetch_pool = None
-
     def autotune_transfer(
         self,
         seconds: float = 40.0,
@@ -968,13 +855,10 @@ class MimiEncoderEngine:
         seed: int = 0,
         samples: Optional[Sequence[np.ndarray]] = None,
         sr: Optional[int] = None,
-        try_compact: bool = False,
     ) -> str:
         """Pick the fastest ``code_transfer_format`` on THIS machine by a
         within-process interleaved A/B, then switch the engine to it
         (CLI ``--code-transfer-format auto``, right after ``warmup``).
-        ``try_compact=True`` also probes "compact", which is otherwise
-        left to manual selection.
 
         Pass ``samples`` (+ their ``sr``) to probe on real shard
         utterances instead of the synthetic lognormal (capped to
@@ -989,11 +873,7 @@ class MimiEncoderEngine:
                 "engines must set code_transfer_format explicitly (every "
                 "process must dispatch the same programs)"
             )
-        candidates = ["packed", "padded"]
-        if self.num_codebooks % 2 != 0:
-            candidates = ["padded"]
-        elif try_compact and self.masked:
-            candidates.append("compact")
+        candidates = ["packed", "padded"] if self.num_codebooks % 2 == 0 else ["padded"]
         if len(candidates) == 1:
             # the constructor's odd-K fallback already pinned this format:
             # a timed probe to "choose" the only option would burn encode
@@ -1052,7 +932,7 @@ class MimiEncoderEngine:
 
     def autotune_drain_policy(
         self,
-        policies: Sequence[str] = ("fifo", "ready", "threaded"),
+        policies: Sequence[str] = ("fifo", "ready"),
         seconds: float = 40.0,
         rounds: int = 3,
         seed: int = 0,
@@ -1072,7 +952,7 @@ class MimiEncoderEngine:
                 "collective dispatch schedule)"
             )
         policies = [str(p) for p in policies]
-        allowed = {"fifo", "ready", "threaded"}
+        allowed = {"fifo", "ready"}
         if not set(policies) <= allowed:
             raise ValueError(f"unknown drain policies: {set(policies) - allowed}")
         utts, sr = self._probe_workload(seconds, seed, samples, sr)
@@ -1080,15 +960,10 @@ class MimiEncoderEngine:
         def set_policy(p: str) -> None:
             self.engine_cfg = dataclasses.replace(self.engine_cfg, drain_policy=p)
 
-        try:
-            medians = self._probe(policies, set_policy, utts, sr, rounds)
-        except BaseException:
-            self._drop_idle_fetch_pool()  # interrupted: no pool behind the old policy
-            raise
+        medians = self._probe(policies, set_policy, utts, sr, rounds)
         self.last_autotune_drain = medians
         best = min(policies, key=lambda p: medians[p])
         set_policy(best)
-        self._drop_idle_fetch_pool()
         logger.info(
             "autotune_drain_policy picked %r (medians: %s)",
             best, {p: f"{m:.3f}s" for p, m in medians.items()},

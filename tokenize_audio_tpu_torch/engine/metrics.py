@@ -51,9 +51,6 @@ class EngineStats:
     # per batch dispatched, its padded frames a row times the layers; 0
     # for a model without one
     lstm_steps: int = 0
-    # launches of the LSTM kernel (ops/cuda/lstm.py) in this engine's
-    # encodes: one a batch of EnCodec on the card, 0 on the CPU and for Mimi
-    lstm_launches: int = 0
     stage_seconds: Dict[str, float] = dataclasses.field(
         default_factory=lambda: defaultdict(float)
     )
@@ -114,7 +111,6 @@ class EngineStats:
             "transformer_graph_captures": self.transformer_graph_captures,
             "transformer_graph_replays": self.transformer_graph_replays,
             "lstm_steps": self.lstm_steps,
-            "lstm_launches": self.lstm_launches,
             **{f"stage_{k}": round(v, 3) for k, v in self.stage_seconds.items()},
         }
 

@@ -36,7 +36,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from tokenize_audio_tpu_torch.config import fp32_precision, ieee_fp32
-from tokenize_audio_tpu_torch.core.transfer import transfer_layout
+from tokenize_audio_tpu_torch.core.contract import encode_epilogue, encode_prologue
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
 from tokenize_audio_tpu_torch.ops.cuda import rvq as rvq_ops
 from tokenize_audio_tpu_torch.ops.cuda import seanet as seanet_ops
@@ -402,7 +402,7 @@ def split_rvq_encode(
     def quantize(proj, head, k):
         # (B, D, T) input projection (a 1x1 conv, as HF's input_proj) ->
         # (B, K, T) codes from the head's first k books; the kernel takes
-        # the codebooks the engine packed once (encoder._pack_for_kernel)
+        # the codebooks the engine packed once (weights.prepare)
         x = proj.transpose(1, 2)  # (B, T, D)
         embeds = head["embed"][:k]
         if backend == "torch":
@@ -460,12 +460,9 @@ def encode(
       - "packed":  (B, T/1920, K//2) int32 — adjacent code PAIRS packed
         16-bit-aligned into one word (codebook 2048 << 2^16, lossless).
         Half the bytes of int32; the host unpack is a little-endian
-        ``view('<u2')``.
-      - "compact": (B*T/1920, K//2) int32 — packed AND valid frames
-        gathered to the front in row order, so bucket pad and row pad
-        never cross the wire; the caller copies a host-computed prefix
-        (per-row frame counts are host-derivable from lengths). Requires
-        masked=True with valid. K must be even for the packed modes.
+        ``view('<u2')``. K must be even.
+    (``core/contract.py`` holds the int16 normalization, the fused
+    resample and this layout, shared with ``encodec.model.encode``.)
 
     The body runs in ``matmul_precision(cfg)`` (``fp32_precision``; IEEE
     fp32 by default, the counterpart of JAX ``Precision.HIGHEST``) and
@@ -498,36 +495,10 @@ def _encode(
 ):
     dt = compute_dtype(cfg)
     params = cast_for_compute(params, cfg)
-    if audio.dtype == torch.int16:
-        # device-side PCM normalization: int16 -> f32 and /32768 are both
-        # exact, so shipping raw 16-bit PCM halves host->device bytes with
-        # bit-identical codes (the host path is pcm_to_float, core/audio.py)
-        audio = audio.to(torch.float32) / 32768.0
-    elif not audio.dtype.is_floating_point:
-        raise TypeError(
-            f"integer audio must be int16 PCM (got {audio.dtype}); "
-            "normalize other PCM widths on host via pcm_to_float"
-        )
-    if resample is not None:
-        # fused resample: audio arrives at the SOURCE rate and the
-        # polyphase conv runs here. Zero-padding beyond ``valid`` rings in
-        # the tail, but every causal conv's VALID outputs read only
-        # positions < valid (+ the replicate-pad extra, which reads the last
-        # valid sample), so the masked invariant keeps codes bit-identical
-        # to resample-then-encode OF THE SAME ROW. Requires masked per-row
-        # semantics for that argument.
-        if not masked or valid is None:
-            raise ValueError("fused resample requires masked=True with valid lengths")
-        from tokenize_audio_tpu_torch.core.audio import _resample_batch
-
-        up, down = resample
-        with span("mimi.resample"):
-            audio = _resample_batch(audio.to(torch.float32), up, down)
-        valid = (valid * up + down - 1) // down  # ceil(valid * up / down)
+    audio, valid, frames = encode_prologue(
+        "mimi", audio, valid, masked, resample, cfg.samples_per_frame
+    )
     x = audio[:, None, :].to(dt)
-    valid_in = valid
-    if not masked:
-        valid = None
     with span("mimi.seanet_encode"):
         x, valid = seanet_encode(params, cfg, x, valid)
     with span("mimi.transformer"):
@@ -544,9 +515,4 @@ def _encode(
         x = x.to(torch.float32)
     with span("mimi.split_rvq"):
         codes = split_rvq_encode(params["rvq"], x, num_quantizers, backend=cfg.rvq_backend)
-    if valid is None and valid_in is not None:
-        # unmasked (HF batch semantics) still reports per-row frame counts
-        spf = cfg.samples_per_frame
-        valid = (valid_in + spf - 1) // spf
-    with span("mimi.pack"):
-        return transfer_layout(codes, valid, num_quantizers, code_dtype, transfer), valid
+    return encode_epilogue("mimi", codes, valid, frames, num_quantizers, code_dtype, transfer)

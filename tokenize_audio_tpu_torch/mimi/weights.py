@@ -5,7 +5,8 @@ Consumes a ``transformers`` Mimi state dict — from a live ``MimiModel``, a
 plain ``{name: ndarray}`` mapping — and emits the numpy param tree (the same
 layout and, for ``random_params``, the same draws as the JAX package's).
 ``params_to_torch`` then places it on a device for
-``tokenize_audio_tpu_torch.mimi.model``. HF conv weights are (O, I, K),
+``tokenize_audio_tpu_torch.mimi.model``, and ``prepare`` gives the engine
+its encode's tree on the device, pruned and packed for the kernels. HF conv weights are (O, I, K),
 which is already torch's ``conv1d`` layout: nothing is transposed. Codebook
 embeddings are materialized as ``embed_sum / clamp(cluster_usage, eps)``
 exactly like the lazy ``embed`` property (transformers
@@ -21,6 +22,8 @@ import torch
 
 from tokenize_audio_tpu_torch.config import resolve_device
 from tokenize_audio_tpu_torch.mimi.config import MimiConfig
+from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
+from tokenize_audio_tpu_torch.ops.cuda.seanet import pack_weights
 
 _CODEBOOK_EPS = 1e-5
 
@@ -334,3 +337,49 @@ def params_to_torch(params: Any, device: Optional[str | torch.device] = None) ->
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     return conv(params)
+
+
+def _encode_subtree(params, num_codebooks: int):
+    """Drop the param subtrees the encode path never touches: the decoder
+    stack (dec/dec_tfm/upsample), RVQ output projections, and acoustic
+    codebooks beyond the requested depth."""
+    keep = {
+        k: v
+        for k, v in params.items()
+        if k in ("enc_in", "blocks", "enc_out", "tfm", "downsample", "rvq")
+    }
+    rvq = {}
+    for head in ("semantic", "acoustic"):
+        h = dict(params["rvq"][head])
+        h.pop("out_proj", None)
+        rvq[head] = h
+    n_sem = rvq["semantic"]["embed"].shape[0]
+    n_ac = max(0, num_codebooks - n_sem)
+    rvq["semantic"]["embed"] = rvq["semantic"]["embed"][: min(n_sem, num_codebooks)]
+    rvq["acoustic"]["embed"] = rvq["acoustic"]["embed"][:n_ac]
+    keep["rvq"] = rvq
+    return keep
+
+
+def pack_kernel_weights(params, cfg: MimiConfig):
+    """Give each SEANet block's residual unit its conv weights in the fused
+    resblock kernel's layout, and each RVQ head its codebooks in the RVQ
+    kernel's, as ``"packed"``: packed once, when the parameters reach the
+    device, and passed to every launch."""
+    # the fused resblock kernel takes float32 only: bf16 mode runs the
+    # plain convs (as the JAX package's f32-only Pallas dispatch does)
+    if cfg.seanet_backend == "kernel" and cfg.compute_dtype == "float32":
+        for block in params["blocks"]:
+            res = block["res"][0]
+            res["packed"] = pack_weights(res["c1"]["w"], res["c2"]["w"])
+    if cfg.rvq_backend == "kernel":
+        for head in params["rvq"].values():
+            head["packed"] = pack_codebooks(head["embed"])
+    return params
+
+
+def prepare(params, cfg: MimiConfig, num_codebooks: int, device) -> Dict[str, Any]:
+    """The tree the engine keeps on ``device``: the encode's params, the
+    first ``num_codebooks`` books, packed for the kernels (the counterpart
+    of ``encodec.weights.prepare``)."""
+    return pack_kernel_weights(params_to_torch(_encode_subtree(params, num_codebooks), device), cfg)

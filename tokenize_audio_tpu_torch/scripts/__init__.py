@@ -20,10 +20,10 @@ parity_sweep           : engine vs HF over many utterances
 pipeline_bench         : ``benchmark --pipeline``
 probe_common           : the A/B probes' workload, warm check and
                          interleaved rounds
-drain_policy_probe     : fifo vs ready vs threaded drains
+drain_policy_probe     : fifo vs ready drains
 fetch_ahead_probe      : the YODAS2 processor at fetch_ahead 0 vs 1
 fetch_dtype_probe      : int32 vs uint16 codes to the host, raw and end to end
-fetch_pack_probe       : padded vs packed vs compact wire formats
+fetch_pack_probe       : padded vs packed wire formats
 growth_probe           : bucket-lattice growth factors
 pipeline_depth_probe   : in-flight batches 12 vs 18 vs 24
 samples_budget_probe   : 128 vs 192 vs 288 s of audio per batch
@@ -37,8 +37,8 @@ monitor.sh             : the progress dashboard
 
 import torch
 
-from tokenize_audio_tpu_torch.engine.encoder import _pack_for_kernel
 from tokenize_audio_tpu_torch.mimi import MimiConfig, params_to_torch
+from tokenize_audio_tpu_torch.mimi.weights import pack_kernel_weights
 
 
 def device_name(dev: torch.device) -> str:
@@ -51,4 +51,4 @@ def device_params(params, cfg: MimiConfig, device: torch.device):
     codebooks (as the engine holds them), built from ``params`` as they are
     now: after ``bf16_qualification.train_codebooks`` the codebooks pack
     anew."""
-    return _pack_for_kernel(params_to_torch(params, device), cfg)
+    return pack_kernel_weights(params_to_torch(params, device), cfg)

@@ -1,12 +1,17 @@
-"""Within-process A/B probe: drain_policy fifo/ready/threaded at depth 18.
+"""Within-process A/B probe: drain_policy fifo/ready at depth 18.
 
 The engine collects in-flight device batches strictly FIFO by default,
 waiting on the oldest copy to the host. The "ready" policy collects
 whichever in-flight batch's copy has landed first, overlapping that wait
-with still-computing batches; "threaded" hands collection to a pool of
-fetch threads. Decision discipline: all engines in ONE process,
-interleaved per round (order re-randomized), medians decide; bit-equality
-asserted first.
+with still-computing batches. Decision discipline: all engines in ONE
+process, interleaved per round (order re-randomized), medians decide;
+bit-equality asserted first.
+
+The JAX script also times a "threaded" drain (a pool of fetch threads
+collecting). The port has none: on an H100 at 700 W it lost to both at
+the bench configuration (medians of 3 interleaved rounds: fifo 3111.8x,
+ready 3099.3x, threaded 3082.4x) and ran 22 % below FIFO on a YODAS2
+sub-shard (1316.5x against 1678.4x).
 
 Usage: python -m tokenize_audio_tpu_torch.scripts.drain_policy_probe
            [rounds] [--device cpu]
@@ -51,7 +56,7 @@ def main(argv=None):
         ecfg = dataclasses.replace(base, drain_policy=policy)
         return MimiEncoderEngine(params, cfg, ecfg, pipeline_depth=18, device=dev)
 
-    engines = {p: engine(p) for p in ("fifo", "ready", "threaded")}
+    engines = {p: engine(p) for p in ("fifo", "ready")}
 
     codes = probe_common.warm_and_check_equal(engines, audios)
 

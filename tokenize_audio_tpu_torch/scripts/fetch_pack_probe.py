@@ -6,12 +6,12 @@ The padded (B, K, T_bucket) int32 copy ships bucket pad and row pad at
   padded  — (B, K, T_bucket) in the engine's code dtype.
   packed  — 2 codes per int32 word (16-bit aligned), host unpack = free
             little-endian view. Halves bytes.
-  compact — packed + valid frames gathered to the front on the card; the
-            engine copies a 16-step-lattice-padded prefix only.
 
 The formats are pure transport: bit-equality across them is asserted
-before timing. Re-probe per machine (compact's byte savings should win
-where the per-copy latency is low).
+before timing. The JAX script also times "compact" (packed, with the
+valid frames gathered to the front on the device). The port has none: on
+an H100 at 700 W it lost to both (medians of 3 interleaved rounds:
+packed 2833.7x, padded 2811.1x, compact 2781.5x).
 
 Usage: python -m tokenize_audio_tpu_torch.scripts.fetch_pack_probe
            [--rounds 5] [--utts 192] [--growth 1.45] [--device cpu]
@@ -57,7 +57,7 @@ def main(argv=None):
             device=dev,
         )
 
-    engines = {f: engine(f) for f in ("padded", "packed", "compact")}
+    engines = {f: engine(f) for f in ("padded", "packed")}
     audios, total_s = probe_common.bench_audios(args.utts)
     print(f"workload: {args.utts} utts / {total_s:.0f} s audio", flush=True)
     codes = probe_common.warm_and_check_equal(engines, audios)

@@ -12,7 +12,7 @@ the run (non-zero exit, no final result line) if its check fails:
                 optional libraries (pandas, pyarrow, transformers,
                 tokenizers, huggingface_hub, safetensors) import on this machine
                 (information only);
-  2. build    — the three kernels compiled for sm_90a, with nvcc's ptxas
+  2. build    — the four kernels compiled for sm_90a, with nvcc's ptxas
                 report;
   3. kernels  — each kernel against its plain PyTorch version at large
                 shapes: agreement, CUDA-event times, and the bound the card's
@@ -23,7 +23,9 @@ the run (non-zero exit, no final result line) if its check fails:
                 entry); EnCodec's LSTM kernel at the EnCodec cell's 1-, 5-
                 and 24-row batches, beside cuDNN's ``torch.lstm``, with
                 its launches counted by its wrapper (``lstm_residual.
-                launches``);
+                launches``); EnCodec's resblock kernel at the cell's four
+                stages of its largest and a mean batch, beside the cuDNN
+                chain it replaced (``encodec_resblock_elu``);
   4. main     — MimiEncoderEngine at full kyutai/mimi width (random weights,
                 seed 0), 32 codebooks, packed transfer, fifo drain, on a
                 YODAS2-shaped sub-shard through encode_batch(defer=True) and
@@ -312,6 +314,12 @@ ENCODEC_RVQ = dict(n=(13_960, 7_075), d=128, v=1024, k=8)
 # frames) of its longest 1-, 5- and 24-row batch (the cell's 28 batches,
 # planned from its traffic's lengths and its engine configuration)
 ENCODEC_LSTM = ((1, 4500), (5, 1857), (24, 347))
+# EnCodec's resblock kernel at engine-web.encodec-8cb's largest batch (20 x
+# 223,360 samples) and one near its mean (24 x 96,640; the cell's mean is
+# 2.26 M samples a batch): (rows, samples); stage s runs C = 32 * 2^s on
+# the samples over (1, 2, 8, 40)
+ENCODEC_RESBLOCK = ((20, 223_360), (24, 96_640))
+ENCODEC_STAGES = ((32, 1), (64, 2), (128, 8), (256, 40))
 RESBLOCK_BATCH, RESBLOCK_SECONDS = 16, 10.0
 AB_PAIRS = 6
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's clocks: longer than any fn's host-side enqueue
@@ -511,6 +519,63 @@ def lstm_encodec_shapes(torch, peak_flops, peak_bw) -> list:
     return rows
 
 
+def encodec_resblock_shapes(torch, peak_flops, peak_bw) -> list:
+    """EnCodec's resblock kernel at the EnCodec cell's stage shapes
+    (``ENCODEC_RESBLOCK`` x ``ENCODEC_STAGES``), with weights scaled as the
+    benchmark's (1/sqrt(fan_in), unit biases): each shape against the plain
+    version with cuDNN (the parent's chain of three convs and PyTorch's
+    elementwise passes, as ``library_ms``) and without it (``plain_ms``:
+    PyTorch's own convs), all three timed, with the shape's bound."""
+    from tokenize_audio_tpu_torch.config import ieee_fp32
+    from tokenize_audio_tpu_torch.ops.cuda import encodec_resblock as rb
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED)
+    gd = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for c, div in ENCODEC_STAGES:
+        c2 = c // 2
+        w = [torch.randn(s, generator=g) / f**0.5 for s, f in (
+            ((c2, c, 3), 3 * c), ((c2,), 1), ((c, c2, 1), c2), ((c,), 1), ((c, c, 1), c), ((c,), 1))]
+        w = [t.to(dev) for t in w]
+        packed = rb.pack_weights(*w)  # once, as the engine does
+        for b, samples in ENCODEC_RESBLOCK:
+            t = samples // div
+            x = torch.randn((b, c, t), generator=gd, device=dev) * 0.5
+            valid = torch.randint(t // 2, t + 1, (b,), generator=gd, device=dev, dtype=torch.int32)
+            valid[0] = t
+            x = torch.where(torch.arange(t, device=dev) < valid[:, None, None], x, 0.0)
+            launches = rb.resblock_elu.launches
+            got = rb.resblock_elu(x, valid, *w, packed=packed)
+            check(rb.resblock_elu.launches == launches + 1,
+                  f"encodec resblock C={c} B={b} T={t}: the wrapper did not launch the kernel")
+            with ieee_fp32():
+                want = rb.resblock_elu_reference(x, valid, *w)
+                torch.cuda.synchronize()
+                err, scale = float((got - want).abs().max()), float(want.abs().max())
+                check(err <= 1e-5 * scale,
+                      f"encodec resblock C={c} B={b} T={t}: max err {err} > 1e-5 * {scale}")
+                del got, want
+                ms = cuda_ms(torch, lambda: rb.resblock_elu(x, valid, *w, packed=packed))
+                library_ms = cuda_ms(torch, lambda: rb.resblock_elu_reference(x, valid, *w))
+                with torch.backends.cudnn.flags(enabled=False):
+                    plain_ms = cuda_ms(torch, lambda: rb.resblock_elu_reference(x, valid, *w),
+                                       warmup=1, reps=3)
+            # pbkit/encodec_flops's count for the block: its k3, k1 and
+            # shortcut products; x in, ye out, the weights once
+            n_weights = 3 * c * c2 + c2 + c * c2 + c * c + 2 * c
+            b_ms, b_by = bound_ms(6.0 * c * c * b * t, 4.0 * (2 * b * c * t + n_weights + b),
+                                  peak_flops, peak_bw)
+            rows.append({"C": c, "B": b, "T": t, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": err, "max_abs_plain": scale,
+                         "launches": rb.resblock_elu.launches - launches})
+            emit({"phase": "kernel_stage", "name": "encodec_resblock_elu", **rows[-1]})
+            del x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def rvq_max_active_clusters():
     """How many clusters of each RVQ kernel variant the card holds at once
     (D = 256), by cudaOccupancyMaxActiveClusters."""
@@ -627,6 +692,26 @@ def phase_kernels(torch, peak_flops, peak_bw, rvq_extras):
             "bound_by": "operations" if all(r["bound_by"] == "operations" for r in shapes) else "bytes",
             "library_ms": sum(r["library_ms"] for r in shapes),
             "shape": "sum of engine-web.encodec-8cb's longest 1-, 5- and 24-row batches",
+            "stages": shapes,
+        })
+        emit({"phase": "kernel", **records[-1]})
+
+        # --- EnCodec's resblock: the engine-web.encodec-8cb cell's stages
+        shapes = encodec_resblock_shapes(torch, peak_flops, peak_bw)
+        records.append({
+            "name": "encodec_resblock_elu",
+            "route": "cuda",
+            "source": "tokenize_audio_tpu_torch/csrc/encodec_resblock.cu",
+            "replaces": "cuDNN's three convs and PyTorch's elementwise passes (no TPU kernel: "
+                        "the JAX package has no EnCodec)",
+            "launches": sum(r["launches"] for r in shapes),
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": sum(r["ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            "bound_ms": sum(r["bound_ms"] for r in shapes),
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in shapes) else "bytes",
+            "library_ms": sum(r["library_ms"] for r in shapes),
+            "shape": "sum of the four stages of engine-web.encodec-8cb's largest and a mean batch",
             "stages": shapes,
         })
         emit({"phase": "kernel", **records[-1]})
@@ -4691,11 +4776,11 @@ def main(argv=None) -> int:
         for src in args.rvq_candidate_cu:
             rvq_pending[Path(src).stem] = start_extra_build(
                 Path(src).stem, src, "rvq_quantize_launch", rvq._ARGTYPES)
-        seconds = _build.build([*_build.KERNELS, "lstm"])
+        seconds = _build.build([*_build.KERNELS, "lstm", "encodec_resblock"])
         ptxas = {
             k: [ln.strip() for ln in _build.build_log(k).splitlines()
                 if "registers" in ln or "spill" in ln]
-            for k in (*_build.KERNELS, "lstm")
+            for k in (*_build.KERNELS, "lstm", "encodec_resblock")
         }
         extras, rvq_extras = {}, {}
         for extra, done in pending.items():

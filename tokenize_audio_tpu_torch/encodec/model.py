@@ -14,11 +14,12 @@ Re-implements the encode path of ``transformers`` ``EncodecModel`` (the
 
 Every function runs on the device its input tensors lie on, in IEEE
 float32 (``encode`` holds TF32 off for cuDNN's convolutions and cuBLAS's
-matmuls); on the card the LSTM is one launch of a persistent kernel a
-batch (``ops/cuda/lstm.py``), with its weights packed once
-(``weights.prepare``), and the RVQ the RVQ kernel. On the CPU
-the codes match ``EncodecModel.encode``'s for each utterance encoded
-alone; tests/test_torch_encodec.py pins this.
+matmuls); on the card each stage's resnet block and the ELU after it are
+one launch of a fused kernel (``ops/cuda/encodec_resblock.py``), the LSTM
+is one launch of a persistent kernel a batch (``ops/cuda/lstm.py``), both
+with their weights packed once (``weights.prepare``), and the RVQ the RVQ
+kernel. On the CPU the codes match ``EncodecModel.encode``'s for each
+utterance encoded alone; tests/test_torch_encodec.py pins this.
 
 Padding (``valid`` lengths). Every conv pads by reflection, as
 transformers' ``EncodecConv1d`` does: ``k_eff - stride`` on the left and,
@@ -35,7 +36,8 @@ padded batch: reflection at the bucket's end.
 
 Only the 24 kHz model's form is ported: causal convs, weight norm, no
 input normalization and no chunking, in float32 at IEEE precision
-(``check_modes``). There is no decoder and no streaming encoder.
+(``check_modes``); on the card also its resnet blocks' form and widths,
+the resblock kernel's. There is no decoder and no streaming encoder.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from tokenize_audio_tpu_torch.config import fp32_precision
 from tokenize_audio_tpu_torch.core.contract import encode_epilogue, encode_prologue
 from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
+from tokenize_audio_tpu_torch.ops.cuda import encodec_resblock as resblock_ops
 from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
 from tokenize_audio_tpu_torch.ops.cuda import rvq as rvq_ops
 from tokenize_audio_tpu_torch.ranges import span
@@ -55,8 +58,26 @@ from tokenize_audio_tpu_torch.ranges import span
 Params = Dict[str, Any]
 
 
-def check_modes(cfg: EncodecConfig) -> None:
-    """Refuse what the port does not run for EnCodec, with the reason."""
+def kernel_form_problem(cfg: EncodecConfig) -> Optional[str]:
+    """Why ``cfg``'s resnet blocks are not of the resblock kernel's form,
+    or None: one block a stage (so dilation 1) with a k3 conv to half the
+    channels, a k1 conv back and a k1 conv shortcut."""
+    if cfg.num_residual_layers != 1:
+        return (f"num_residual_layers {cfg.num_residual_layers}: the resblock kernel runs one "
+                "resnet block a stage, of dilation 1")
+    if not cfg.use_conv_shortcut:
+        return "use_conv_shortcut False: the resblock kernel runs the k1 conv shortcut"
+    if cfg.residual_kernel_size != 3 or cfg.compress != 2:
+        return (f"residual_kernel_size {cfg.residual_kernel_size}, compress {cfg.compress}: the "
+                "resblock kernel runs a k3 conv to half the channels")
+    return None
+
+
+def check_modes(cfg: EncodecConfig, device=None) -> None:
+    """Refuse what the port does not run for EnCodec, with the reason; on a
+    CUDA ``device`` also resnet blocks the resblock kernel does not run: of
+    another form (``kernel_form_problem``) or at another stage width than
+    it takes (``encodec_resblock.WIDTHS``)."""
     if cfg.compute_dtype != "float32":
         raise ValueError(
             f"EnCodec runs in float32 only; compute_dtype {cfg.compute_dtype!r} "
@@ -78,6 +99,13 @@ def check_modes(cfg: EncodecConfig) -> None:
             "only the 24 kHz EnCodec's form is ported: causal, weight-normed, "
             "reflect-padded convs, no normalization and no chunking"
         )
+    if device is not None and torch.device(device).type == "cuda":
+        problem = kernel_form_problem(cfg)
+        widths = [cfg.num_filters * 2**i for i in range(len(cfg.encoder_strides))]
+        if problem is None and any(c not in resblock_ops.WIDTHS for c in widths):
+            problem = f"stage widths {widths}: the resblock kernel takes {resblock_ops.WIDTHS}"
+        if problem is not None:
+            raise ValueError(f"EnCodec on the card: {problem}")
 
 
 def _mask(x: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
@@ -151,20 +179,34 @@ def seanet_encode(
     """(B, 1, T) audio -> (B, 512, T/320): the input conv and the four
     stages of transformers ``EncodecEncoder`` (each resblock
     ``shortcut(x) + conv1(elu(conv3(elu(x))))``, then ELU and the strided
-    conv)."""
+    conv). In the resblock kernel's form (``kernel_form_problem``) a
+    stage's block and ELU are ``encodec_resblock.resblock_elu``: one launch
+    on the card, the same chain on the CPU; another form runs on the CPU
+    only."""
+    problem = kernel_form_problem(cfg)
     x, valid = causal_conv1d(x, valid, params["enc_in"]["w"], params["enc_in"]["b"])
     for block, stride in zip(params["blocks"], cfg.encoder_strides):
-        for j, res in enumerate(block["res"]):
-            h, _ = causal_conv1d(
-                F.elu(x), None, res["c1"]["w"], res["c1"]["b"],
-                dilation=cfg.dilation_growth_rate**j,
+        if problem is None:
+            res = block["res"][0]
+            x = resblock_ops.resblock_elu(
+                x, valid, res["c1"]["w"], res["c1"]["b"], res["c2"]["w"], res["c2"]["b"],
+                res["shortcut"]["w"], res["shortcut"]["b"], packed=res.get("packed"),
             )
-            h, _ = causal_conv1d(F.elu(h), None, res["c2"]["w"], res["c2"]["b"])
-            sc = res.get("shortcut")
-            if sc is not None:
-                x, _ = causal_conv1d(x, None, sc["w"], sc["b"])
-            x = _mask(x + h, valid)
-        x, valid = causal_conv1d(F.elu(x), valid, block["down"]["w"], block["down"]["b"], stride=stride)
+        elif x.device.type != "cpu":
+            raise ValueError(f"EnCodec on the card: {problem}")
+        else:
+            for j, res in enumerate(block["res"]):
+                h, _ = causal_conv1d(
+                    F.elu(x), None, res["c1"]["w"], res["c1"]["b"],
+                    dilation=cfg.dilation_growth_rate**j,
+                )
+                h, _ = causal_conv1d(F.elu(h), None, res["c2"]["w"], res["c2"]["b"])
+                sc = res.get("shortcut")
+                if sc is not None:
+                    x, _ = causal_conv1d(x, None, sc["w"], sc["b"])
+                x = _mask(x + h, valid)
+            x = F.elu(x)
+        x, valid = causal_conv1d(x, valid, block["down"]["w"], block["down"]["b"], stride=stride)
     return x, valid
 
 
@@ -232,7 +274,7 @@ def encode(
     ``tokenize_audio::encodec.*`` range (``ranges.span``): ``resample``
     (the fused one), ``seanet_encode``, ``lstm``, ``project``, ``rvq`` and
     ``pack``."""
-    check_modes(cfg)
+    check_modes(cfg, audio.device)
     with fp32_precision("ieee"):
         return _encode(
             params, cfg, audio, valid, num_quantizers, masked, code_dtype, resample, transfer

@@ -18,6 +18,7 @@ device):
 
     enc_in            {"w", "b"}                       input conv
     blocks[i]         {"res": [{"c1", "c2", "shortcut"}], "down"}
+                      (``prepare`` adds the resblock kernel's "packed" layout)
     lstm              {"weights": [w_ih_l0, w_hh_l0, b_ih_l0, b_hh_l0, ...]}
                       (``prepare`` adds the LSTM kernel's "packed" layout)
     enc_out           {"w", "b"}                       final conv
@@ -32,6 +33,8 @@ import numpy as np
 import torch
 
 from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
+from tokenize_audio_tpu_torch.encodec.model import kernel_form_problem
+from tokenize_audio_tpu_torch.ops.cuda import encodec_resblock as resblock_ops
 from tokenize_audio_tpu_torch.ops.cuda import lstm as lstm_ops
 from tokenize_audio_tpu_torch.ops.cuda.rvq import pack_codebooks
 
@@ -112,10 +115,13 @@ def params_from_safetensors(path: str, cfg: Optional[EncodecConfig] = None) -> D
 
 def prepare(params: Dict[str, Any], cfg: EncodecConfig, num_codebooks: int, device) -> Dict[str, Any]:
     """The tree the engine keeps on ``device``: the first ``num_codebooks``
-    books, packed once for the RVQ kernel (``"packed"``), and the LSTM's
+    books, packed once for the RVQ kernel (``"packed"``); the LSTM's
     weights with, where they have the LSTM kernel's shape (2 layers of
     512), the kernel's layout packed once (``lstm["packed"]``,
-    ``ops/cuda/lstm.py::pack_weights``)."""
+    ``ops/cuda/lstm.py::pack_weights``); and, where the resnet blocks have
+    the resblock kernel's form (``encodec.model.kernel_form_problem``),
+    each block's weights in that kernel's layout (``res["packed"]``,
+    ``ops/cuda/encodec_resblock.py::pack_weights``)."""
     if not 1 <= num_codebooks <= cfg.num_quantizers:
         raise ValueError(
             f"num_codebooks {num_codebooks} not in 1..{cfg.num_quantizers} for this EnCodec"
@@ -129,6 +135,13 @@ def prepare(params: Dict[str, Any], cfg: EncodecConfig, num_codebooks: int, devi
         return _t(tree).to(device)
 
     out = to({k: params[k] for k in ("enc_in", "blocks", "enc_out")})
+    if kernel_form_problem(cfg) is None:
+        for block in out["blocks"]:
+            res = block["res"][0]
+            res["packed"] = resblock_ops.pack_weights(
+                res["c1"]["w"], res["c1"]["b"], res["c2"]["w"], res["c2"]["b"],
+                res["shortcut"]["w"], res["shortcut"]["b"],
+            )
     out["lstm"] = {"weights": to(params["lstm"]["weights"])}
     if cfg.num_lstm_layers == lstm_ops.LAYERS and cfg.lstm_size == lstm_ops.HIDDEN:
         out["lstm"]["packed"] = lstm_ops.pack_weights(out["lstm"]["weights"])

@@ -120,11 +120,12 @@ class _Model:
     graphs: bool
 
 
-def _model_for(cfg, engine_cfg: EngineConfig, mesh) -> _Model:
-    """The model of ``cfg`` (a ``MimiConfig`` or an ``EncodecConfig``); an
-    unknown mode, backend or setting raises now, not at the first encode."""
+def _model_for(cfg, engine_cfg: EngineConfig, mesh, device) -> _Model:
+    """The model of ``cfg`` (a ``MimiConfig`` or an ``EncodecConfig``) on
+    ``device``; an unknown mode, backend or setting raises now, not at the
+    first encode."""
     if isinstance(cfg, EncodecConfig):
-        encodec_model.check_modes(cfg)
+        encodec_model.check_modes(cfg, device)
         if engine_cfg.long_audio_policy == "stream":
             raise ValueError(
                 "EnCodec has no streaming encoder: use long_audio_policy='split'"
@@ -176,7 +177,7 @@ class MimiEncoderEngine:
         self._pending_autotune: Optional[dict] = None
         self.cfg = cfg or MimiConfig()
         self.engine_cfg = engine_cfg or EngineConfig()
-        self._model = _model_for(self.cfg, self.engine_cfg, mesh)
+        self._model = _model_for(self.cfg, self.engine_cfg, mesh, self.device)
         self.num_codebooks = num_codebooks or self.engine_cfg.num_codebooks
         self.masked = masked
         self.stats = EngineStats()

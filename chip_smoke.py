@@ -35,6 +35,11 @@ the run (non-zero exit, no final result line) if its check fails:
                 first divergence a near-tie under the kit's TIE_MARGIN); every
                 (B, C, T) the main path launches the resblock kernel with,
                 and every (N, K) it launches the RVQ kernel with, is recorded;
+                then DAC 44.1 kHz (``phase_dac``) on the same engine at its
+                published widths, one web batch of seeded utterances against
+                the benchmark's plain reference (``port_bench/reference/
+                dac_ref.py``) under the cell's ``code_gap_max``, with 29
+                Snakes a batch (``dac.model.launches``);
   5. stream   — the engine with long_audio_policy="stream" (defaults
                 otherwise: stream_batch 8, 320 s horizon, 8 s chunks), 32
                 codebooks, on 24 kHz utterances of 61-340 s and four short
@@ -833,6 +838,83 @@ class KernelSpy:
 
     def __exit__(self, *exc):
         self.seanet.resblock_elu, self.rvq.rvq_quantize = self.orig
+
+
+# DAC 44.1 kHz: its cell's configuration, engine settings and limit
+DAC_CELL = "engine-web.dac-44k-9cb"
+# one batch: 16 ragged rows whose whole-frame lengths share the 7.04 s
+# bucket of the cell's lattice (2 s x 1.15^n), 27 rows of 192 s
+DAC_UTTERANCES, DAC_SECONDS = 16, (6.2, 7.0)
+DAC_SNAKES = 29  # a batch: 7 in each of the four blocks and the last one
+
+
+def phase_dac(torch):
+    """DAC at the published widths through ``MimiEncoderEngine``: one web
+    batch of seeded int16 utterances of ragged lengths, each row's codes
+    against the plain reference's quantizer input under the cell's
+    ``code_gap_max``, TF32 off inside the encode, and 29 Snakes."""
+    bench = Path(__file__).resolve().parent / "port_bench"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    from reference import dac_ref, dac_weights
+    from tokenize_audio_tpu_torch.config import EngineConfig
+    from tokenize_audio_tpu_torch.dac import model as dac_model
+    from tokenize_audio_tpu_torch.dac.config import DacConfig
+    from tokenize_audio_tpu_torch.dac.weights import convert_hf_state_dict
+    from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
+
+    cfg_d = json.loads((bench / "configs" / "dac-44k-9cb.json").read_text())
+    cell = json.loads((bench / "cells" / f"{DAC_CELL}.json").read_text())
+    keys = {f.name for f in dataclasses.fields(DacConfig)}
+    cfg = DacConfig(**{k: v for k, v in cfg_d.items() if k in keys})
+    rate, books = cfg.sampling_rate, cfg_d["run"]["num_codebooks"]
+    sd = dac_weights.state_dict(cfg_d, SEED, torch.device("cuda"))
+    engine = MimiEncoderEngine(convert_hf_state_dict(sd, cfg), cfg,
+                               EngineConfig(sample_rate=rate, **cell["engine"]), num_codebooks=books)
+    rng = np.random.default_rng(SEED + 7)
+    secs = rng.uniform(*DAC_SECONDS, DAC_UTTERANCES)
+    audios = [np.clip(rng.standard_normal(int(t * rate)) * 0.3 * 32767, -32768, 32767).astype(np.int16)
+              for t in secs]
+    seen = {}
+    orig = dac_model.rvq_encode
+
+    def spy(*args, **kwargs):
+        seen["cudnn.allow_tf32"] = torch.backends.cudnn.allow_tf32
+        seen["cuda.matmul.allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
+        return orig(*args, **kwargs)
+
+    dac_model.rvq_encode = spy
+    try:
+        snakes = dac_model.launches
+        t0 = time.perf_counter()
+        codes = engine.encode_batch(audios, sr=rate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snakes = dac_model.launches - snakes
+    finally:
+        dac_model.rvq_encode = orig
+    batches = engine.stats.batches
+    check(seen and not any(seen.values()), f"DAC: TF32 flags inside encode: {seen}")
+    check(batches == 1 and snakes == DAC_SNAKES,
+          f"DAC: {snakes} Snakes in {batches} batches, not {DAC_SNAKES} in one")
+    gaps, used = [], [set() for _ in range(books)]
+    for a, c in zip(audios, codes):
+        check(c.shape == (books, -(-len(a) // cfg.hop_length)) and c.dtype == np.uint16
+              and int(c.max()) < cfg.codebook_size, f"DAC codes {c.shape} {c.dtype} for {len(a)}")
+        x = torch.from_numpy(a).cuda().float() / 32768.0
+        emb = dac_ref.embeddings(sd, cfg_d, x)
+        c64 = torch.from_numpy(c.astype(np.int64)).cuda()
+        gaps.append(float(dac_ref.code_gaps(sd, cfg_d, emb, c64).max()))
+        for book, row in zip(used, c):
+            book.update(row.tolist())
+    limit = cell["limits"]["code_gap_max"]
+    check(max(gaps) <= limit, f"DAC: code_gap_max {max(gaps)} over the cell's {limit}")
+    audio_s = sum(len(a) for a in audios) / rate
+    emit({"phase": "dac", "utterances": len(audios), "audio_seconds": audio_s, "batches": batches,
+          "snakes": snakes, "code_gap_max": max(gaps), "limit": limit,
+          "distinct_codes": [len(b) for b in used], "first_call_rtf": audio_s / wall,
+          "peak_bytes": int(torch.cuda.max_memory_allocated())})
+    return {"batches": batches, "snakes": snakes}
 
 
 def phase_main(torch):
@@ -4799,6 +4881,8 @@ def main(argv=None) -> int:
 
         records = timed("kernels", phase_kernels, torch, peak_flops, peak_bw, rvq_extras)
         launches, shapes, rvq_shapes = timed("main", phase_main, torch)
+        timed("dac", phase_dac, torch)
+        torch.cuda.empty_cache()
         stream_launches, stream_rvq_shapes = timed("stream", phase_stream, torch)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_yodas2_") as tmp:
             yodas2_launches, yodas2_shapes, yodas2_rvq_shapes, mirror = timed(

@@ -30,8 +30,8 @@ def main(argv=None):
     enc.add_argument("inputs", nargs="+")
     enc.add_argument(
         "--params", default=None,
-        help="mimi safetensors checkpoint, or a HF snapshot directory of kyutai/mimi or "
-        "facebook/encodec_24khz (encode only)",
+        help="mimi safetensors checkpoint, or a HF snapshot directory of kyutai/mimi, "
+        "facebook/encodec_24khz or descript/dac_44khz (the last two encode only)",
     )
     enc.add_argument("-o", "--output", default=None, help="write codes here (default stdout)")
     enc.add_argument("--num-codebooks", type=int, default=8)

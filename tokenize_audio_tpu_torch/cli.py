@@ -41,8 +41,8 @@ def add_engine_args(ap: argparse.ArgumentParser, batch_size: int = 16) -> None:
         "--params",
         default=None,
         help="mimi safetensors checkpoint, or a HF snapshot directory "
-        "(config.json + model.safetensors) of kyutai/mimi or "
-        "facebook/encodec_24khz, by its model_type",
+        "(config.json + model.safetensors) of kyutai/mimi, "
+        "facebook/encodec_24khz or descript/dac_44khz, by its model_type",
     )
     ap.add_argument(
         "--device",
@@ -177,8 +177,9 @@ def engine_from_args(
     """Build the encode engine from the shared flags, on ``--device`` (the
     CUDA device unless the caller asks for another). A snapshot directory
     as ``--params`` gives the model its ``config.json`` names; the engine
-    refuses a mode that model does not run (EnCodec: bfloat16, TF32, the
-    streaming policy)."""
+    refuses a mode that model does not run (EnCodec and DAC: bfloat16,
+    TF32, the streaming policy), and runs at the model's own rate (DAC's
+    44.1 kHz)."""
     modes = dict(
         compute_dtype="bfloat16" if getattr(args, "fast", False) else "float32",
         matmul_precision=getattr(args, "precision", "highest"),
@@ -210,7 +211,7 @@ def engine_from_args(
         samples_per_batch=getattr(args, "samples_per_batch", None),
         max_chunk_seconds=getattr(args, "max_chunk_seconds", 60.0),
         long_audio_policy=getattr(args, "long_audio_policy", "split"),
-        **engine_overrides,
+        **{"sample_rate": cfg.sampling_rate, **engine_overrides},
     )
     engine = MimiEncoderEngine(
         params, cfg, ecfg, num_codebooks=num_codebooks,

@@ -7,8 +7,9 @@ utils helpers (librispeech-mimi/utils.py:58-87) over the port's engine.
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``. A
 snapshot of ``facebook/encodec_24khz`` (``model_type`` "encodec" in its
-``config.json``) loads too, and encodes through the same engine; EnCodec's
-decoder is not ported, so its codes do not decode here.
+``config.json``) or of ``descript/dac_44khz`` ("dac") loads too, and
+encodes through the same engine (DAC's at 44.1 kHz); neither decoder is
+ported, so their codes do not decode here.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch
 
 from tokenize_audio_tpu_torch.config import NUM_CODEBOOKS, UNICODE_OFFSET_LARGE, EngineConfig
 from tokenize_audio_tpu_torch.core.codes import chars_to_codes, codes_to_chars
+from tokenize_audio_tpu_torch.dac import weights as dac_weights
+from tokenize_audio_tpu_torch.dac.config import DacConfig
 from tokenize_audio_tpu_torch.encodec import weights as encodec_weights
 from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
 from tokenize_audio_tpu_torch.engine import MimiEncoderEngine
@@ -37,7 +40,7 @@ class MimiCodec:
     def __init__(
         self,
         params,
-        cfg: Optional[MimiConfig | EncodecConfig] = None,
+        cfg: Optional[MimiConfig | EncodecConfig | DacConfig] = None,
         engine_cfg: Optional[EngineConfig] = None,
         num_codebooks: int = NUM_CODEBOOKS,
         unicode_offset: int = UNICODE_OFFSET_LARGE,
@@ -70,7 +73,8 @@ class MimiCodec:
         ``MimiModel.from_pretrained("kyutai/mimi")``
         (yodas2-mimi/process_shard.py:188-195), honoring any non-default
         checkpoint configuration. The snapshot's ``model_type`` picks the
-        model: "mimi", or "encodec" (``facebook/encodec_24khz``)."""
+        model: "mimi", "encodec" (``facebook/encodec_24khz``) or "dac"
+        (``descript/dac_44khz``)."""
         params, cfg = read_hf_snapshot(snapshot_dir)
         return cls(params, cfg=cfg, **kwargs)
 
@@ -96,10 +100,11 @@ class MimiCodec:
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         """(K, T) or (B, K, T) codes -> float32 audio at 24 kHz."""
-        if isinstance(self.cfg, EncodecConfig):
-            raise NotImplementedError(
-                "EnCodec's decoder is not ported: this codec encodes EnCodec only"
-            )
+        for cls, name in ((EncodecConfig, "EnCodec"), (DacConfig, "DAC")):
+            if isinstance(self.cfg, cls):
+                raise NotImplementedError(
+                    f"{name}'s decoder is not ported: this codec encodes {name} only"
+                )
         codes = np.asarray(codes)
         if codes.shape[-1] == 0:
             raise ValueError(
@@ -143,8 +148,8 @@ def _config_from_json(raw: dict, cls=MimiConfig, **modes):
 
 def read_hf_snapshot(snapshot_dir: str, **modes):
     """(params, cfg) of a local HF snapshot directory (config.json +
-    model.safetensors), by its ``model_type``: "mimi" (the default) or
-    "encodec". ``modes`` (``compute_dtype``, ``matmul_precision``, the
+    model.safetensors), by its ``model_type``: "mimi" (the default),
+    "encodec" or "dac". ``modes`` (``compute_dtype``, ``matmul_precision``, the
     backends) set the run modes the model's configuration has."""
     with open(os.path.join(snapshot_dir, "config.json")) as f:
         raw = json.load(f)
@@ -155,7 +160,13 @@ def read_hf_snapshot(snapshot_dir: str, **modes):
             raise ValueError("EnCodec's RVQ runs on the kernel only (rvq_backend 'kernel')")
         cfg = _config_from_json(raw, EncodecConfig, **modes)
         return encodec_weights.params_from_safetensors(weights, cfg), cfg
+    if kind == "dac":
+        # DAC's encoder is plain PyTorch: the kernel backends do not apply
+        cfg = _config_from_json(raw, DacConfig, **modes)
+        return dac_weights.params_from_safetensors(weights, cfg), cfg
     if kind != "mimi":
-        raise ValueError(f"{snapshot_dir}: model_type {kind!r} is neither 'mimi' nor 'encodec'")
+        raise ValueError(
+            f"{snapshot_dir}: model_type {kind!r} is not 'mimi', 'encodec' or 'dac'"
+        )
     cfg = _config_from_json(raw, MimiConfig, **modes)
     return params_from_safetensors(weights, cfg), cfg

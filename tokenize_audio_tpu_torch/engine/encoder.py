@@ -1,4 +1,4 @@
-"""Length-bucketed Mimi (or EnCodec) batch-encode engine on one GPU.
+"""Length-bucketed Mimi (or EnCodec, or DAC) batch-encode engine on one GPU.
 
 Drop-in capability replacement for the reference's ``MimiEncoder`` wrapper
 (yodas2-mimi/process_shard.py:185-274 and its nine copy-paste sites):
@@ -38,7 +38,10 @@ the engine runs ``facebook/encodec_24khz``'s encoder instead
 transformer: a 2-layer LSTM, one kernel launch a batch), through the same
 buckets, batches, transfers and counters, in IEEE float32 and on one
 device: its bfloat16 and TF32 modes, the streaming policy and a mesh
-raise at construction (``_model_for``).
+raise at construction (``_model_for``). Given a ``dac.config.DacConfig``,
+it runs ``descript/dac_44khz``'s encoder (``dac/model.py``; 44.1 kHz, 512
+samples a frame, nine factorized books) under the same refusals, and
+masked batches only: its non-causal convs need every layer's mask.
 
 With a ``parallel.mesh.Mesh`` (one process per GPU under
 ``torch.distributed``), the batch dimension is split over the mesh's
@@ -72,6 +75,9 @@ from tokenize_audio_tpu_torch.core.audio import (
     resample_many,
     split_long_audio_with_context,
 )
+from tokenize_audio_tpu_torch.dac import model as dac_model
+from tokenize_audio_tpu_torch.dac import weights as dac_weights
+from tokenize_audio_tpu_torch.dac.config import DacConfig
 from tokenize_audio_tpu_torch.encodec import model as encodec_model
 from tokenize_audio_tpu_torch.encodec import weights as encodec_weights
 from tokenize_audio_tpu_torch.encodec.config import EncodecConfig
@@ -120,10 +126,27 @@ class _Model:
     graphs: bool
 
 
-def _model_for(cfg, engine_cfg: EngineConfig, mesh, device) -> _Model:
-    """The model of ``cfg`` (a ``MimiConfig`` or an ``EncodecConfig``) on
-    ``device``; an unknown mode, backend or setting raises now, not at the
-    first encode."""
+def _model_for(cfg, engine_cfg: EngineConfig, mesh, device, masked: bool) -> _Model:
+    """The model of ``cfg`` (a ``MimiConfig``, an ``EncodecConfig`` or a
+    ``DacConfig``) on ``device``; an unknown mode, backend or setting
+    raises now, not at the first encode."""
+    if isinstance(cfg, DacConfig):
+        dac_model.check_modes(cfg)
+        if not masked:
+            raise ValueError(
+                "DAC encodes masked batches only: its non-causal convs read a row's "
+                "padding into its codes unless every layer masks it"
+            )
+        if engine_cfg.sample_rate != cfg.sampling_rate:
+            raise ValueError(
+                f"DAC at {cfg.sampling_rate} Hz needs EngineConfig.sample_rate "
+                f"{cfg.sampling_rate}, not {engine_cfg.sample_rate}"
+            )
+        if engine_cfg.long_audio_policy == "stream":
+            raise ValueError("DAC has no streaming encoder: use long_audio_policy='split'")
+        if mesh is not None:
+            raise ValueError("DAC runs on one device: it takes no mesh")
+        return _Model(dac_model.encode, dac_weights.prepare, 0, False)
     if isinstance(cfg, EncodecConfig):
         encodec_model.check_modes(cfg, device)
         if engine_cfg.long_audio_policy == "stream":
@@ -153,7 +176,7 @@ class MimiEncoderEngine:
     def __init__(
         self,
         params,
-        cfg: Optional[MimiConfig | EncodecConfig] = None,
+        cfg: Optional[MimiConfig | EncodecConfig | DacConfig] = None,
         engine_cfg: Optional[EngineConfig] = None,
         mesh=None,
         num_codebooks: Optional[int] = None,
@@ -176,8 +199,9 @@ class MimiEncoderEngine:
         self.last_autotune_drain: dict = {}  # per-policy median probe seconds
         self._pending_autotune: Optional[dict] = None
         self.cfg = cfg or MimiConfig()
-        self.engine_cfg = engine_cfg or EngineConfig()
-        self._model = _model_for(self.cfg, self.engine_cfg, mesh, self.device)
+        # without one, the engine runs at its model's rate
+        self.engine_cfg = engine_cfg or EngineConfig(sample_rate=self.cfg.sampling_rate)
+        self._model = _model_for(self.cfg, self.engine_cfg, mesh, self.device, masked)
         self.num_codebooks = num_codebooks or self.engine_cfg.num_codebooks
         self.masked = masked
         self.stats = EngineStats()
@@ -245,7 +269,7 @@ class MimiEncoderEngine:
     def _new_graphs(self) -> Optional[GraphCache]:
         """A cache of CUDA graphs over the engine's params, which stay put
         for its lifetime (Mimi's transformer stack); None off CUDA and for
-        a model that replays no stage (EnCodec)."""
+        a model that replays no stage (EnCodec, DAC)."""
         if self.device.type != "cuda" or not self._model.graphs:
             return None
         # weakly: the engine owns the cache, and a strong reference back
